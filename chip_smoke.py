@@ -1,0 +1,426 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path once on one CUDA card, and check it.
+
+    python3 chip_smoke.py
+
+The main path is the batched SRBD-MPC update of ``g1_locomotion_tpu_torch``
+(SRBD linearization -> ZOH -> condensation -> friction-cone rows ->
+segmented ADMM with active-set polish -> rollout) at the G1's full width:
+N = 10, 120 decision variables, 200 constraint rows, float32, random
+initial states from a seeded generator. Phases, each of which must pass:
+
+0. build the four CUDA kernels from ``g1_locomotion_tpu_torch/csrc``;
+1. each kernel against its plain PyTorch version on the card, on inputs
+   recorded from the main path itself (so at the shapes it gives them);
+2. throughput: one ``MPCSolver`` call at B = 4096 in the ``bench.py``
+   configuration (matmul inverses, kernel B1); physical invariants; the
+   first 256 instances against the plain-version path on the card;
+3. serving: 22 data-dependent B = 1 solves in the ``tools/bench_latency.py``
+   configuration (kernels B2, B3, B4); the same invariants;
+4. timings with CUDA events (not counted as main-path launches).
+
+Launch counters are zeroed right before phase 2 and read right after
+phase 3; every kernel must have launched there. The line before the last
+is a JSON object with one entry per kernel; the last line is
+``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero,
+and so does a machine without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import subprocess
+import sys
+import time
+from statistics import median
+
+import torch
+
+B_THROUGHPUT = 4096
+B_COMPARE = 256     # instances held against the plain-version path
+B_RECORD = 8        # serving-path instances recorded for phase 1
+SERVING_CHAIN = 22  # data-dependent B = 1 solves (tools/bench_latency.py)
+DU0_MAX_N = 0.5     # |u0 kernel path - u0 plain path| bound [N]
+THROUGHPUT_BATCHES = 10  # timed B = 4096 batches
+SERVING_SAMPLES = 1000   # timed B = 1 solves: 10 samples beyond the p99
+SOURCE = "g1_locomotion_tpu_torch/csrc/lin_kernels.cu"
+REPLACES = {
+    "chol_inverse_base": "g1_locomotion_tpu/ops/pallas_lin.py:118",
+    "gj_inverse": "g1_locomotion_tpu/ops/pallas_lin.py:271",
+    "gj_solve": "g1_locomotion_tpu/ops/pallas_lin.py:215",
+    "admm_iterate": "g1_locomotion_tpu/ops/pallas_lin.py:374",
+}
+
+
+def gpu_line() -> str:
+    """The card's name and power limit as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def configs():
+    from g1_locomotion_tpu_torch.mpc.solver import MPCConfig
+    from g1_locomotion_tpu_torch.ops.qp import QPConfig
+
+    qp = QPConfig(iters=20, scaling_iters=0, rho=1.0, rho_segments=2, polish_rounds=2,
+                  iter_precision="high")
+    return (MPCConfig(horizon=10, qp=qp),
+            MPCConfig(horizon=10, qp=qp._replace(polish_kernel=True)))
+
+
+def bench_inputs(B: int, device, dtype, seed: int = 0):
+    """bench.py's workload: standing CoM over four foot contacts, mixed
+    standing / left-swing / right-swing patterns, lateral CoM offsets."""
+    from g1_locomotion_tpu_torch.models.srbd import GRAVITY
+
+    N = 10
+    gen = torch.Generator().manual_seed(seed)
+    com = torch.tensor([0.0527, 0.0, 0.598], dtype=dtype)
+    feet = torch.tensor([[-0.05, 0.12, 0.0], [0.12, 0.12, 0.0],
+                         [-0.05, -0.12, 0.0], [0.12, -0.12, 0.0]], dtype=dtype)
+    x0 = torch.zeros(13, dtype=dtype)
+    x0[3:6] = com
+    x0[12] = GRAVITY
+    stand = torch.ones((N, 4), dtype=dtype)
+    left_up, right_up = stand.clone(), stand.clone()
+    left_up[:, :2] = 0.0
+    right_up[:, 2:] = 0.0
+    pattern = torch.randint(0, 3, (B,), generator=gen)
+    pattern[: min(B, 3)] = torch.arange(min(B, 3))  # every pattern up front
+    x0s = x0.repeat(B, 1)
+    x0s[:, 4] += (torch.rand(B, generator=gen, dtype=dtype) - 0.5) * 0.06
+    return {k: v.to(device) for k, v in dict(
+        x0=x0s, x_ref=x0.repeat(N, 1), contact=torch.stack([stand, left_up, right_up])[pattern],
+        c_hor=feet.repeat(N, 1, 1), p_hor=com.repeat(N, 1),
+    ).items()}
+
+
+def solver_for(cfg, device, dtype):
+    from g1_locomotion_tpu_torch.models import srbd
+    from g1_locomotion_tpu_torch.mpc import solver as mpc
+
+    return mpc.MPCSolver(cfg, mpc.default_weights(device=device, dtype=dtype),
+                         srbd.default_params(device=device, dtype=dtype))
+
+
+def run(solver, inp, rows=slice(None)):
+    return solver(inp["x0"][rows], inp["x_ref"], inp["contact"][rows], inp["c_hor"],
+                  inp["p_hor"])
+
+
+@contextlib.contextmanager
+def replaced_kernels(make):
+    """Swap each kernel wrapper in ops/cuda_lin for make(name, wrapper)."""
+    from g1_locomotion_tpu_torch.ops import cuda_lin
+
+    saved = {name: getattr(cuda_lin, name) for name in cuda_lin.PLAIN}
+    try:
+        for name, fn in saved.items():
+            setattr(cuda_lin, name, make(name, fn))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(cuda_lin, name, fn)
+
+
+def plain_kernels():
+    """Route the main path through the plain versions (for the comparison)."""
+    from g1_locomotion_tpu_torch.ops import cuda_lin
+
+    return replaced_kernels(lambda name, fn: cuda_lin.PLAIN[name])
+
+
+def recording_kernels(calls, per_shape: int = 3):
+    """Record each kernel's inputs on the main path: the first `per_shape`
+    calls of each input shape (for B2 on the serving path: the K of both
+    ADMM segments and the polish Hr), as calls[name] = [(shapes, args)]."""
+
+    def make(name, fn):
+        def wrapper(*args):
+            key = tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor))
+            seen = calls.setdefault(name, [])
+            if sum(k == key for k, _ in seen) < per_shape:
+                seen.append((key, [a.clone() if isinstance(a, torch.Tensor) else a
+                                   for a in args]))
+            return fn(*args)
+        return wrapper
+
+    return replaced_kernels(make)
+
+
+def check_invariants(sol, contact, label: str) -> None:
+    """Standing instances carry m*g within 1%; swing contacts carry exactly 0;
+    the post-polish constraint residual is below 0.05 N; no NaN."""
+    from g1_locomotion_tpu_torch.models.srbd import G1_MASS, GRAVITY
+
+    for k in ("u0", "U", "x_horizon", "pri_res", "dua_res"):
+        if not torch.isfinite(getattr(sol, k)).all():
+            raise AssertionError(f"{label}: non-finite {k}")
+    mg = G1_MASS * -GRAVITY
+    standing = contact[:, 0].sum(dim=-1) == 4
+    fz = sol.u0[standing][:, 2::3].sum(dim=-1)
+    if standing.any() and not torch.all((fz - mg).abs() <= 0.01 * mg):
+        raise AssertionError(f"{label}: standing sum fz in [{fz.min():.3f}, {fz.max():.3f}] N, "
+                             f"m*g = {mg:.3f} N")
+    swing = contact[:, 0].repeat_interleave(3, dim=-1) == 0
+    if not torch.all(sol.u0[swing] == 0):
+        raise AssertionError(f"{label}: swing-contact forces are not exactly 0")
+    if float(sol.pri_res.max()) >= 0.05:
+        raise AssertionError(f"{label}: pri_res max {float(sol.pri_res.max()):.3e} >= 0.05 N")
+    print(f"{label}: invariants ok: {int(standing.sum())} standing, sum fz "
+          f"[{float(fz.min()) if standing.any() else float('nan'):.3f}, "
+          f"{float(fz.max()) if standing.any() else float('nan'):.3f}] N (m*g {mg:.3f}), "
+          f"pri_res max {float(sol.pri_res.max()):.3e} N, "
+          f"dua_res max {float(sol.dua_res.max()):.3e}")
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of fn() in ms, CUDA events around `reps` calls."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def eye_residual(K: torch.Tensor, X: torch.Tensor) -> float:
+    """max |K X - I| (X an inverse of K)."""
+    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+    return float((K @ X - eye).abs().amax())
+
+
+def compare_kernels(calls, gen_device) -> dict:
+    """Phase 1: every kernel against its plain version on the same inputs on
+    the card. Returns {name: max_abs_err} over the checked inputs."""
+    from g1_locomotion_tpu_torch.ops import cuda_lin
+
+    errs = {}
+
+    def note(name, err):
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    # B1 on random SPD blocks at (B*4, 30, 30) and (B*8, 25, 25), cond 1e3:
+    # W within 2e-4 relative (tests/test_pallas_lin.py) and W'W K = I.
+    gen = torch.Generator().manual_seed(1)
+    for b, n in ((B_THROUGHPUT * 4, 30), (B_THROUGHPUT * 8, 25)):
+        Q, _ = torch.linalg.qr(torch.randn((b, n, n), generator=gen, dtype=torch.float64))
+        lam = torch.exp(torch.rand((b, n), generator=gen, dtype=torch.float64) * 6.9)
+        K = ((Q * lam[:, None, :]) @ Q.mT).to(torch.float32).to(gen_device)
+        W = cuda_lin.chol_inverse_base(K)
+        W_ref = cuda_lin.chol_inverse_base_ref(K)
+        torch.cuda.synchronize()
+        err, res = rel_err(W, W_ref), eye_residual(K, W.mT @ W)
+        print(f"B1 random SPD {tuple(K.shape)}: rel err {err:.3e} (<= 2e-4), "
+              f"max|W'WK - I| {res:.3e} (<= 5e-3)")
+        if not (err <= 2e-4 and res <= 5e-3):
+            raise AssertionError("B1 disagrees with its plain version on random SPD blocks")
+
+    # Every kernel on the inputs the main path gave it.
+    for key, args in calls["chol_inverse_base"]:
+        K = args[0]
+        W, W_ref = cuda_lin.chol_inverse_base(K), cuda_lin.chol_inverse_base_ref(K)
+        torch.cuda.synchronize()
+        err = rel_err(W, W_ref)
+        res, res_ref = eye_residual(K, W.mT @ W), eye_residual(K, W_ref.mT @ W_ref)
+        note("chol_inverse_base", float((W - W_ref).abs().max()))
+        print(f"B1 main-path blocks {key[0]}: rel err {err:.3e}; max|W'WK - I| kernel "
+              f"{res:.3e}, plain {res_ref:.3e} (kernel <= 4 plain + 1e-4)")
+        if not res <= 4 * res_ref + 1e-4:
+            raise AssertionError("B1 inverse residual worse than its plain version's")
+
+    # B2 on the ADMM K (120) and the polish Hr (120) of real MPC instances:
+    # ill-conditioned (rho up to 1e3 on equality rows), so the check is the
+    # inverse residual against the plain version's.
+    for key, args in calls["gj_inverse"]:
+        K = args[0]
+        X, X_ref = cuda_lin.gj_inverse(K), cuda_lin.gj_inverse_ref(K)
+        torch.cuda.synchronize()
+        res, res_ref = eye_residual(K, X), eye_residual(K, X_ref)
+        note("gj_inverse", float((X - X_ref).abs().max()))
+        print(f"B2 {key[0]}: rel err {rel_err(X, X_ref):.3e}; max|K X - I| kernel {res:.3e}, "
+              f"plain {res_ref:.3e} (kernel <= 4 plain + 1e-4)")
+        if not res <= 4 * res_ref + 1e-4:
+            raise AssertionError("B2 inverse residual worse than its plain version's")
+
+    # B3 on the polish Schur complement S (200): ill-conditioned, so the check
+    # is the residual |S x - b| relative to |b|.
+    for key, args in calls["gj_solve"]:
+        S, b = args
+        x, x_ref = cuda_lin.gj_solve(S, b), cuda_lin.gj_solve_ref(S, b)
+        torch.cuda.synchronize()
+
+        def resid(v):
+            return float(((S @ v[..., None])[..., 0] - b).abs().amax() / b.abs().amax())
+
+        res, res_ref = resid(x), resid(x_ref)
+        note("gj_solve", float((x - x_ref).abs().max()))
+        print(f"B3 {key[0]}: rel err {rel_err(x, x_ref):.3e}; |Sx - b|/|b| kernel {res:.3e}, "
+              f"plain {res_ref:.3e} (kernel <= 4 plain + 1e-5)")
+        if not res <= 4 * res_ref + 1e-5:
+            raise AssertionError("B3 solve residual worse than its plain version's")
+
+    # B4 against the plain loop: 2e-4 relative to the output scale
+    # (tests/test_pallas_lin.py's tolerance between the two loops).
+    for key, args in calls["admm_iterate"]:
+        out = cuda_lin.admm_iterate(*args)
+        ref = cuda_lin.admm_iterate_ref(*args)
+        torch.cuda.synchronize()
+        worst = max(rel_err(o, r) for o, r in zip(out, ref))
+        note("admm_iterate", max(float((o - r).abs().max()) for o, r in zip(out, ref)))
+        print(f"B4 A {key[1]}, num {args[9]}: max rel err over x, z, y {worst:.3e} (<= 2e-4)")
+        if not worst <= 2e-4:
+            raise AssertionError("B4 disagrees with its plain loop")
+    return errs
+
+
+def main() -> None:
+    from g1_locomotion_tpu_torch._device import require_cuda
+
+    device = require_cuda()
+    from g1_locomotion_tpu_torch.ops import cuda_lin
+
+    gpu = gpu_line()
+    print(gpu)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(f"device: {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
+    dtype = torch.float32
+
+    # Phase 0: build from the checkout's sources.
+    path, seconds, log = cuda_lin.build(verbose=True)
+    cuda_lin._lib()
+    print(f"phase 0 build: {seconds:.1f} s -> {path.name}")
+    for line in log.splitlines():
+        if "registers" in line or "Compiling entry" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
+
+    thr_cfg, srv_cfg = configs()
+    thr, srv = solver_for(thr_cfg, device, dtype), solver_for(srv_cfg, device, dtype)
+    inp = bench_inputs(B_THROUGHPUT, device, dtype)
+
+    # Phase 1: record each kernel's main-path inputs, then hold each kernel
+    # against its plain version on them.
+    calls = {}
+    with recording_kernels(calls):
+        run(thr, inp)
+        run(srv, inp, slice(0, B_RECORD))
+    torch.cuda.synchronize()
+    errs = compare_kernels(calls, device)
+    print("phase 1 kernels vs plain versions: ok")
+
+    # Phases 2 and 3: the main path, counted.
+    cuda_lin.reset_launch_counts()
+    t0 = time.perf_counter()
+    sol = run(thr, inp)
+    torch.cuda.synchronize()
+    print(f"phase 2 throughput: B={B_THROUGHPUT} solved in {time.perf_counter() - t0:.3f} s "
+          f"(first call, host clock)")
+    if cuda_lin.launch_counts()["chol_inverse_base"] == 0:
+        raise AssertionError("throughput path did not launch kernel B1")
+    check_invariants(sol, inp["contact"], "phase 2 throughput")
+    with plain_kernels():
+        ref = run(thr, inp, slice(0, B_COMPARE))
+    torch.cuda.synchronize()
+    du = (sol.u0[:B_COMPARE] - ref.u0).abs().amax(dim=-1)
+    print(f"phase 2 kernel path vs plain path, first {B_COMPARE} instances: |du0| max "
+          f"{float(du.max()):.3e} N, median {float(du.median()):.3e} N (max <= {DU0_MAX_N})")
+    if float(du.max()) > DU0_MAX_N:
+        bad = torch.nonzero(du > DU0_MAX_N).flatten().tolist()
+        for i in bad[:10]:
+            print(f"  instance {i}: |du0| {float(du[i]):.3e} N, pri/dua kernel "
+                  f"{float(sol.pri_res[i]):.3e}/{float(sol.dua_res[i]):.3e}, plain "
+                  f"{float(ref.pri_res[i]):.3e}/{float(ref.dua_res[i]):.3e}")
+        raise AssertionError(f"{len(bad)} instances differ from the plain path by > {DU0_MAX_N} N")
+
+    one = bench_inputs(1, device, dtype)  # instance 0 is standing
+    x = one["x0"]
+    for _ in range(SERVING_CHAIN):
+        s1 = srv(x, one["x_ref"], one["contact"], one["c_hor"], one["p_hor"])
+        x = x + 1e-9 * torch.nn.functional.pad(s1.u0, (0, 1))  # data dependence
+    torch.cuda.synchronize()
+    check_invariants(s1, one["contact"], f"phase 3 serving ({SERVING_CHAIN}-solve chain)")
+    launches = cuda_lin.launch_counts()
+    print(f"main-path launches: {launches}")
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"kernel {name} was not launched on the main path")
+
+    # Phase 4: timings (the card's name and power limit on every line).
+    thr_ms = sorted(cuda_ms(lambda: run(thr, inp), reps=1, warmup=1 if i == 0 else 0)
+                    for i in range(THROUGHPUT_BATCHES))
+    rates = [B_THROUGHPUT / (ms / 1e3) for ms in thr_ms]
+    print(f"[{gpu}] throughput: median {B_THROUGHPUT / (median(thr_ms) / 1e3):.1f} solves/s "
+          f"(B={B_THROUGHPUT} batch {median(thr_ms):.3f} ms median, range "
+          f"{thr_ms[0]:.3f}-{thr_ms[-1]:.3f} ms, solves/s {min(rates):.1f}-{max(rates):.1f}; "
+          f"{THROUGHPUT_BATCHES} batches, CUDA events)")
+    for _ in range(3):
+        srv(x, one["x_ref"], one["contact"], one["c_hor"], one["p_hor"])
+    lat = []
+    for _ in range(SERVING_SAMPLES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv(x, one["x_ref"], one["contact"], one["c_hor"], one["p_hor"])
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    lat_t = torch.tensor(lat)
+    print(f"[{gpu}] serving B=1 solve latency: p50 {float(lat_t.quantile(0.5)):.3f} ms, "
+          f"p99 {float(lat_t.quantile(0.99)):.3f} ms over {len(lat)} sequential solves "
+          f"(host clock, synchronized)")
+
+    timing = {}  # {name: (kernel ms, plain ms)} at the first (widest) shape
+    for name in REPLACES:
+        kernel, plain = getattr(cuda_lin, name), cuda_lin.PLAIN[name]
+        # The slice's shapes: B1 at each block size of the throughput path,
+        # widest first; B2-B4 on one serving instance.
+        if name == "chol_inverse_base":
+            widths = sorted({key[0] for key, _ in calls[name]}, key=lambda s: -s[-1])
+            cases = [next(args for key, args in calls[name] if key[0] == w) for w in widths]
+        else:
+            cases = [[a[:1].contiguous() if isinstance(a, torch.Tensor) else a
+                      for a in calls[name][0][1]]]
+        for args in cases:
+            k_ms = cuda_ms(lambda: kernel(*args), reps=20)
+            p_ms = cuda_ms(lambda: plain(*args), reps=5)
+            timing.setdefault(name, (k_ms, p_ms))
+            print(f"[{gpu}] {name} at {tuple(args[0].shape)}: kernel {k_ms:.4f} ms, "
+                  f"plain {p_ms:.4f} ms")
+
+    # For later perf work: the recursion ending in B1 against the library
+    # Cholesky inverse at the throughput K's size. Recorded, not switched.
+    from g1_locomotion_tpu_torch.ops.lin import spd_inverse
+
+    gen = torch.Generator().manual_seed(2)
+    M = torch.randn((B_THROUGHPUT, 120, 120), generator=gen).to(device)
+    Kb = M @ M.mT + 120 * torch.eye(120, device=device)
+    rec_ms = cuda_ms(lambda: spd_inverse(Kb), reps=5)
+    lib_ms = cuda_ms(lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(Kb).L), reps=5)
+    print(f"[{gpu}] SPD inverse (4096, 120, 120): recursion + B1 {rec_ms:.3f} ms, "
+          f"torch.linalg.cholesky_ex + cholesky_inverse {lib_ms:.3f} ms")
+
+    kernels = [
+        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+         "launches": launches[name], "max_abs_err": errs[name],
+         "ms": timing[name][0], "plain_ms": timing[name][1]}
+        for name in REPLACES
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()
+    sys.stdout.flush()

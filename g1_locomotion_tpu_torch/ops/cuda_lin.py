@@ -1,0 +1,354 @@
+"""The QP's four dense linear-algebra kernels: CUDA wrappers and plain versions.
+
+Counterpart of ``g1_locomotion_tpu/ops/pallas_lin.py``. Each Pallas TPU
+kernel there is a hand-written CUDA C++ kernel for Hopper (sm_90a) in
+``csrc/lin_kernels.cu``:
+
+========================  ==========================================  ==========================
+wrapper                   replaces (g1_locomotion_tpu/ops/...)        plain version
+========================  ==========================================  ==========================
+``chol_inverse_base``     ``pallas_lin.py:chol_inverse_base`` (B1)    ``chol_inverse_base_ref``
+``gj_inverse``            ``pallas_lin.py:gj_inverse`` (B2)           ``gj_inverse_ref``
+``gj_solve``              ``pallas_lin.py:gj_solve`` (B3)             ``gj_solve_ref``
+``admm_iterate``          ``pallas_lin.py:admm_iterate`` (B4)         ``admm_iterate_ref``
+========================  ==========================================  ==========================
+
+Every wrapper takes a batch ``(B, ...)`` and dispatches on the device of
+its input alone: a CPU tensor goes to the plain PyTorch version, a CUDA
+tensor launches the kernel (or raises). There is no fallback from one to
+the other. ``<wrapper>.launches`` counts the kernel's launches.
+
+The CUDA source is compiled at first use with ``nvcc`` into a shared
+library with a plain C interface under ``g1_locomotion_tpu_torch/_build/``
+and loaded with ``ctypes``; a CPU call never reaches the loader.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Tuple
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "lin_kernels.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+MAX_SMEM_BYTES = 232448  # dynamic shared memory a block may use on Hopper
+BASE_MAX = 32            # largest block the Cholesky base kernel takes
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_D = ctypes.c_double
+_SIGNATURES = {
+    "lin_chol_inv_base": [_P, _P, _I, _I, _P],
+    "lin_gj_inverse": [_P, _P, _I, _I, _P],
+    "lin_gj_solve": [_P, _P, _P, _I, _I, _P],
+    "lin_admm_iterate": [_P] * 12 + [_I, _I, _I, _I, _D, _D, _P],
+}
+
+
+# ---------------------------------------------------------------------------
+# Build and load
+# ---------------------------------------------------------------------------
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit")
+
+
+def library_path() -> Path:
+    """Where the built library lives; the name carries a hash of the source
+    and flags, so an edited source is rebuilt."""
+    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"liblin_kernels_{digest[:16]}.so"
+
+
+def build(verbose: bool = False) -> Tuple[Path, float, str]:
+    """Compile ``csrc/lin_kernels.cu`` if its library is missing.
+
+    Returns (library path, seconds spent compiling (0 if it was built),
+    the compiler's output). With ``verbose`` the compiler reports each
+    kernel's registers and shared memory (``-Xptxas -v``).
+    """
+    out = library_path()
+    if out.exists():
+        return out, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), str(SOURCE)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    return out, seconds, proc.stdout + proc.stderr
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()[0]))
+    for name, argtypes in _SIGNATURES.items():
+        for suffix in ("f32", "f64"):
+            fn = getattr(lib, f"{name}_{suffix}")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch(name: str, dtype: torch.dtype, *args) -> None:
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    err = getattr(_lib(), f"{name}_{suffix}")(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}_{suffix}: CUDA error {err} at launch")
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _check(name: str, tensors: Dict[str, torch.Tensor], shapes: Dict[str, tuple]) -> None:
+    """Raise unless every tensor is a contiguous CUDA float32/float64 tensor of
+    one dtype and one device, with the expected shape."""
+    first = next(iter(tensors.values()))
+    for key, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{name}: {key} is on {t.device}; the kernel takes CUDA tensors "
+                             f"(the plain version runs when every input is on the CPU)")
+        if t.dtype not in (torch.float32, torch.float64) or t.dtype != first.dtype:
+            raise ValueError(f"{name}: {key} has dtype {t.dtype}; all must be one of float32/float64")
+        if t.device != first.device:
+            raise ValueError(f"{name}: {key} is on {t.device}, expected {first.device}")
+        if tuple(t.shape) != shapes[key]:
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {shapes[key]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+
+
+def _check_smem(name: str, dtype: torch.dtype, elements: int) -> None:
+    nbytes = elements * (4 if dtype == torch.float32 else 8)
+    if nbytes > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"{name}: needs {nbytes} B of shared memory per block, above the "
+            f"{MAX_SMEM_BYTES} B a Hopper block can use"
+        )
+
+
+def launch_counts() -> Dict[str, int]:
+    """{wrapper name: launches of its kernel}."""
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def _count(name: str) -> None:
+    """One launch of kernel `name`, on the wrapper's own counter (found by
+    name, so a caller that swaps the module attribute still counts)."""
+    _BY_NAME[name].launches += 1
+
+
+def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Batched matrix-vector product (..., r, c) x (..., c) -> (..., r)."""
+    return (M @ v[..., None])[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# B1: Cholesky-inverse base case
+# ---------------------------------------------------------------------------
+
+
+def chol_inverse_base_ref(K: torch.Tensor) -> torch.Tensor:
+    """Plain version of B1: W = L^-1 with K = L L' for (..., n, n), n small.
+
+    Unrolled column Cholesky (diagonal clamped at 1e-30) and forward
+    substitution on the identity, as the reference's ``lin._chol_inv_base``.
+    """
+    n = K.shape[-1]
+    L = torch.zeros_like(K)
+    for j in range(n):
+        d = K[..., j, j] - torch.sum(L[..., j, :j] ** 2, dim=-1) if j > 0 else K[..., j, j]
+        d = torch.sqrt(torch.clamp(d, min=1e-30))
+        L[..., j, j] = d
+        if j + 1 < n:
+            s = K[..., j + 1 :, j]
+            if j > 0:
+                s = s - _mv(L[..., j + 1 :, :j], L[..., j, :j])
+            L[..., j + 1 :, j] = s / d[..., None]
+    W = torch.zeros_like(K)
+    eye = torch.eye(n, dtype=K.dtype, device=K.device)
+    for i in range(n):
+        s = eye[i].expand(K.shape[:-1])
+        if i > 0:
+            s = s - (L[..., i, None, :i] @ W[..., :i, :])[..., 0, :]
+        W[..., i, :] = s / L[..., i, i, None]
+    return W
+
+
+def chol_inverse_base(K: torch.Tensor) -> torch.Tensor:
+    """B1: W = L^-1 with K = L L' for SPD K (B, n, n), n <= 32."""
+    if K.device.type == "cpu":
+        return chol_inverse_base_ref(K)
+    if K.dim() != 3:
+        raise ValueError(f"chol_inverse_base: K must be (B, n, n), got {tuple(K.shape)}")
+    B, n, _ = K.shape
+    _check("chol_inverse_base", {"K": K}, {"K": (B, n, n)})
+    if not 1 <= n <= BASE_MAX:
+        raise ValueError(f"chol_inverse_base: n = {n}, the kernel takes 1 <= n <= {BASE_MAX}")
+    W = torch.empty_like(K)
+    _launch("lin_chol_inv_base", K.dtype, _ptr(K), _ptr(W), B, n, _stream(K))
+    _count("chol_inverse_base")
+    return W
+
+
+# ---------------------------------------------------------------------------
+# B2 / B3: unpivoted Gauss-Jordan inverse and solve
+# ---------------------------------------------------------------------------
+
+
+def _gj_eliminate(aug: torch.Tensor, m: int) -> torch.Tensor:
+    """Unpivoted Gauss-Jordan on the augmented (..., m, w) system, as the
+    reference's Pallas kernels do it: step j subtracts (a_ij / a_jj) row_j
+    from every row i != j. Returns the eliminated system."""
+    rows = torch.arange(m, device=aug.device)
+    for j in range(m):
+        f = aug[..., :, j] / aug[..., j, j, None]
+        f = torch.where(rows == j, torch.zeros_like(f), f)
+        aug = aug - f[..., :, None] * aug[..., j, None, :]
+    return aug
+
+
+def gj_inverse_ref(K: torch.Tensor) -> torch.Tensor:
+    """Plain version of B2: K^-1 for SPD + ridge K (..., m, m) by unpivoted
+    Gauss-Jordan elimination on [K | I]."""
+    m = K.shape[-1]
+    eye = torch.eye(m, dtype=K.dtype, device=K.device).expand(K.shape)
+    aug = _gj_eliminate(torch.cat([K, eye], dim=-1), m)
+    diag = torch.diagonal(aug[..., :m], dim1=-2, dim2=-1)
+    return aug[..., m:] / diag[..., None]
+
+
+def gj_solve_ref(K: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of B3: x = K^-1 b for SPD + ridge K (..., m, m), b (..., m),
+    by unpivoted Gauss-Jordan elimination on [K | b]."""
+    m = K.shape[-1]
+    aug = _gj_eliminate(torch.cat([K, b[..., None]], dim=-1), m)
+    diag = torch.diagonal(aug[..., :m], dim1=-2, dim2=-1)
+    return aug[..., m] / diag
+
+
+def gj_inverse(K: torch.Tensor) -> torch.Tensor:
+    """B2: K^-1 for SPD + ridge K (B, m, m)."""
+    if K.device.type == "cpu":
+        return gj_inverse_ref(K)
+    if K.dim() != 3:
+        raise ValueError(f"gj_inverse: K must be (B, m, m), got {tuple(K.shape)}")
+    B, m, _ = K.shape
+    _check("gj_inverse", {"K": K}, {"K": (B, m, m)})
+    _check_smem("gj_inverse", K.dtype, m * 2 * m + m)
+    out = torch.empty_like(K)
+    _launch("lin_gj_inverse", K.dtype, _ptr(K), _ptr(out), B, m, _stream(K))
+    _count("gj_inverse")
+    return out
+
+
+def gj_solve(K: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """B3: x = K^-1 b for SPD + ridge K (B, m, m) and b (B, m)."""
+    if K.device.type == "cpu" and b.device.type == "cpu":
+        return gj_solve_ref(K, b)
+    if K.dim() != 3:
+        raise ValueError(f"gj_solve: K must be (B, m, m), got {tuple(K.shape)}")
+    B, m, _ = K.shape
+    _check("gj_solve", {"K": K, "b": b}, {"K": (B, m, m), "b": (B, m)})
+    _check_smem("gj_solve", K.dtype, m * (m + 1) + m)
+    x = torch.empty_like(b)
+    _launch("lin_gj_solve", K.dtype, _ptr(K), _ptr(b), _ptr(x), B, m, _stream(K))
+    _count("gj_solve")
+    return x
+
+
+# ---------------------------------------------------------------------------
+# B4: a segment of relaxed ADMM iterations with a fixed K^-1
+# ---------------------------------------------------------------------------
+
+
+def admm_iterate_ref(Kinv, A, q, l, u, rho_vec, x, z, y, num: int, sigma: float,
+                     alpha: float):
+    """Plain version of B4: ``num`` relaxed-ADMM iterations of the batched QP
+    (Kinv (..., n, n), A (..., m, n), vectors (..., n) / (..., m)), the update
+    of ops/qp.py's iteration loop with x~ = K^-1 rhs. Returns (x, z, y)."""
+    for _ in range(num):
+        rhs = sigma * x - q + _mv(A.mT, rho_vec * z - y)
+        x_t = _mv(Kinv, rhs)
+        z_t = _mv(A, x_t)
+        x_n = alpha * x_t + (1 - alpha) * x
+        z_ax = alpha * z_t + (1 - alpha) * z
+        z_n = torch.clamp(z_ax + y / rho_vec, min=l, max=u)
+        y = y + rho_vec * (z_ax - z_n)
+        x, z = x_n, z_n
+    return x, z, y
+
+
+def admm_iterate(Kinv, A, q, l, u, rho_vec, x, z, y, num: int, sigma: float, alpha: float):
+    """B4: ``num`` relaxed-ADMM iterations per instance, K^-1 fixed; (x, z, y)."""
+    args = {"Kinv": Kinv, "A": A, "q": q, "l": l, "u": u, "rho_vec": rho_vec,
+            "x": x, "z": z, "y": y}
+    if all(t.device.type == "cpu" for t in args.values()):
+        return admm_iterate_ref(Kinv, A, q, l, u, rho_vec, x, z, y, num, sigma, alpha)
+    if A.dim() != 3:
+        raise ValueError(f"admm_iterate: A must be (B, m, n), got {tuple(A.shape)}")
+    B, m, n = A.shape
+    vec_n, vec_m = (B, n), (B, m)
+    _check("admm_iterate", args, {
+        "Kinv": (B, n, n), "A": (B, m, n), "q": vec_n, "l": vec_m, "u": vec_m,
+        "rho_vec": vec_m, "x": vec_n, "z": vec_m, "y": vec_m,
+    })
+    if num < 0:
+        raise ValueError(f"admm_iterate: num = {num} < 0")
+    _check_smem("admm_iterate", A.dtype, n * n + m * n + 4 * n + 7 * m)
+    xo, zo, yo = torch.empty_like(x), torch.empty_like(z), torch.empty_like(y)
+    _launch(
+        "lin_admm_iterate", A.dtype,
+        *(_ptr(t) for t in (Kinv, A, q, l, u, rho_vec, x, z, y, xo, zo, yo)),
+        B, n, m, int(num), float(sigma), float(alpha), _stream(A),
+    )
+    _count("admm_iterate")
+    return xo, zo, yo
+
+
+KERNELS = (chol_inverse_base, gj_inverse, gj_solve, admm_iterate)
+PLAIN = {
+    "chol_inverse_base": chol_inverse_base_ref,
+    "gj_inverse": gj_inverse_ref,
+    "gj_solve": gj_solve_ref,
+    "admm_iterate": admm_iterate_ref,
+}
+_BY_NAME = {fn.__name__: fn for fn in KERNELS}
+reset_launch_counts()

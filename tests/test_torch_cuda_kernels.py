@@ -1,0 +1,166 @@
+"""The CUDA kernels of ops/cuda_lin.py against their plain versions, on the card.
+
+Every test here is marked ``gpu`` and skips without a CUDA device. The file
+imports torch and numpy only (the machine with the card has no JAX), so it
+runs there without the repository's conftest:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_cuda_kernels.py -q
+
+Tolerances, kernel vs plain version on the same inputs on the card:
+float32 2e-4 (tests/test_pallas_lin.py's kernel tolerance: f32 rounding
+amplified by cond <= 1e3 over a few hundred dependent steps), float64 1e-9.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from g1_locomotion_tpu_torch.ops import cuda_lin
+
+TOL = {torch.float32: 2e-4, torch.float64: 1e-9}
+SIGMA, ALPHA, NUM = 1e-6, 1.6, 17
+ADMM_ARGS = ("Kinv", "A", "q", "l", "u", "rho_vec", "x", "z", "y")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _random_spd(seed, b, n, cond=1e3):
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.standard_normal((b, n, n)))
+    lams = np.exp(rng.uniform(0.0, np.log(cond), size=(b, n)))
+    K = np.einsum("bik,bk,bjk->bij", Q, lams, Q)
+    return 0.5 * (K + np.swapaxes(K, -1, -2))
+
+
+def _admm_case(seed, b, n, m):
+    rng = np.random.default_rng(seed)
+    P = _random_spd(seed + 1, b, n, cond=1e2)
+    A = rng.standard_normal((b, m, n))
+    rho = np.abs(rng.standard_normal((b, m))) + 0.5
+    K = P + SIGMA * np.eye(n) + np.einsum("bmi,bm,bmj->bij", A, rho, A)
+    return dict(
+        Kinv=np.linalg.inv(K), A=A, q=rng.standard_normal((b, n)),
+        l=-np.abs(rng.standard_normal((b, m))) - 0.1,
+        u=np.abs(rng.standard_normal((b, m))) + 0.1, rho_vec=rho,
+        x=rng.standard_normal((b, n)) * 0.1, z=np.zeros((b, m)), y=np.zeros((b, m)),
+    )
+
+
+def _counted(name, fn):
+    """Run fn() and assert that it launched kernel `name` exactly once."""
+    before = cuda_lin.launch_counts()[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert cuda_lin.launch_counts()[name] == before + 1
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 4, 25, 30, 32])
+def test_chol_inverse_base(cuda, dtype, n):
+    K = torch.tensor(_random_spd(n, 37, n), dtype=dtype, device=cuda)
+    W = _counted("chol_inverse_base", lambda: cuda_lin.chol_inverse_base(K))
+    torch.testing.assert_close(W, cuda_lin.chol_inverse_base_ref(K), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [21, 120])
+def test_gj_inverse(cuda, dtype, m):
+    K = torch.tensor(_random_spd(m, 3, m, cond=1e2), dtype=dtype, device=cuda)
+    Ki = _counted("gj_inverse", lambda: cuda_lin.gj_inverse(K))
+    torch.testing.assert_close(Ki, cuda_lin.gj_inverse_ref(K), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [37, 160])
+def test_gj_solve(cuda, dtype, m):
+    K = torch.tensor(_random_spd(m, 3, m, cond=1e2), dtype=dtype, device=cuda)
+    b = torch.tensor(np.random.default_rng(m).standard_normal((3, m)), dtype=dtype, device=cuda)
+    x = _counted("gj_solve", lambda: cuda_lin.gj_solve(K, b))
+    torch.testing.assert_close(x, cuda_lin.gj_solve_ref(K, b), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, n, m, b", [
+    (torch.float32, 13, 21, 4), (torch.float64, 13, 21, 4), (torch.float32, 120, 200, 2),
+])
+def test_admm_iterate(cuda, dtype, n, m, b):
+    args = _admm_tensors(cuda, dtype, n, m, b)
+    out = _counted("admm_iterate", lambda: cuda_lin.admm_iterate(*args, NUM, SIGMA, ALPHA))
+    ref = cuda_lin.admm_iterate_ref(*args, NUM, SIGMA, ALPHA)
+    for o, r in zip(out, ref):
+        scale = float(r.abs().max())
+        torch.testing.assert_close(o, r, rtol=TOL[dtype], atol=TOL[dtype] * max(scale, 1.0))
+
+
+@pytest.mark.gpu
+def test_admm_iterate_refuses_float64_at_mpc_size(cuda):
+    """K^-1 and A of the MPC QP need 322 KB of shared memory at float64, more
+    than a Hopper block has: the wrapper refuses before launching."""
+    args = _admm_tensors(cuda, torch.float64, 120, 200, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_lin.admm_iterate(*args, NUM, SIGMA, ALPHA)
+
+
+def _admm_tensors(device, dtype, n, m, b):
+    case = _admm_case(n + m, b, n, m)
+    return [torch.tensor(case[k], dtype=dtype, device=device) for k in ADMM_ARGS]
+
+
+@pytest.mark.gpu
+def test_wrappers_refuse_bad_input(cuda):
+    K = torch.eye(40, device=cuda).expand(2, 40, 40)
+    with pytest.raises(ValueError):
+        cuda_lin.chol_inverse_base(K.contiguous())  # n > 32
+    with pytest.raises(ValueError):
+        cuda_lin.gj_inverse(K)  # not contiguous
+    with pytest.raises(ValueError):
+        cuda_lin.gj_inverse(K.contiguous().half())  # dtype
+    with pytest.raises(ValueError):
+        cuda_lin.gj_inverse(torch.eye(200, dtype=torch.float64, device=cuda)[None])  # smem
+    with pytest.raises(ValueError):
+        cuda_lin.gj_solve(K.contiguous(), torch.ones((2, 40)))  # b on the CPU
+
+
+@pytest.mark.gpu
+def test_slice_float64_on_card_matches_cpu(cuda):
+    """The throughput slice at float64: kernel B1 on the card against the
+    plain path on the CPU, u0 to 1e-6 N (the CPU test tolerance vs JAX)."""
+    from g1_locomotion_tpu_torch.models import srbd
+    from g1_locomotion_tpu_torch.mpc import solver as mpc
+    from g1_locomotion_tpu_torch.ops.qp import QPConfig
+
+    cfg = mpc.MPCConfig(horizon=10, qp=QPConfig(iters=20, scaling_iters=0, rho=1.0,
+                                                rho_segments=2, polish_rounds=2))
+    N, B = 10, 6
+    x0 = torch.zeros(13, dtype=torch.float64)
+    x0[3:6] = torch.tensor([0.0527, 0.0, 0.598])
+    x0[12] = srbd.GRAVITY
+    feet = torch.tensor([[-0.05, 0.12, 0.0], [0.12, 0.12, 0.0],
+                         [-0.05, -0.12, 0.0], [0.12, -0.12, 0.0]], dtype=torch.float64)
+    contact = torch.ones((B, N, 4), dtype=torch.float64)
+    contact[1::3, :, :2] = 0.0
+    contact[2::3, :, 2:] = 0.0
+    x0s = x0.repeat(B, 1)
+    x0s[:, 4] += torch.linspace(-0.03, 0.03, B, dtype=torch.float64)
+    args = [x0s, x0.repeat(N, 1), contact, feet.repeat(N, 1, 1), x0[3:6].repeat(N, 1)]
+
+    def solve(device):
+        w = mpc.default_weights(device=device, dtype=torch.float64)
+        p = srbd.default_params(device=device, dtype=torch.float64)
+        return mpc.solve(cfg, w, p, *(a.to(device) for a in args))
+
+    before = cuda_lin.launch_counts()["chol_inverse_base"]
+    on_card = solve(cuda)
+    assert cuda_lin.launch_counts()["chol_inverse_base"] > before
+    on_cpu = solve(torch.device("cpu"))
+    torch.testing.assert_close(on_card.u0.cpu(), on_cpu.u0, rtol=0, atol=1e-6)

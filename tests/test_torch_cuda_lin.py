@@ -1,0 +1,168 @@
+"""ops/cuda_lin.py of the PyTorch port: the plain versions of the four
+kernels against the JAX package's Pallas kernels, and the wrappers' device
+dispatch.
+
+The JAX kernels run in interpret mode (as tests/test_pallas_lin.py runs
+them), on the cases of that file plus a batch of 3 different instances. The
+Pallas gj/admm kernels are single-instance, so the JAX side loops over the
+batch. Everything compares at float64, where both sides carry out the same
+elimination / factorization steps in a different association order
+(the Pallas B1 multiplies by 1/d where the plain version divides by d, and
+pads rows with identity), so they agree to rounding amplified by the
+conditioning (cond <= 1e3 here): rtol 1e-9, atol 1e-11.
+
+The CUDA kernels themselves are held against these plain versions on the
+card by tests/test_torch_cuda_kernels.py and chip_smoke.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from g1_locomotion_tpu.ops import pallas_lin
+from g1_locomotion_tpu_torch.ops import cuda_lin
+
+RTOL, ATOL = 1e-9, 1e-11
+
+
+def _random_spd(rng, b, n, cond=1e3):
+    """Batch of SPD matrices with eigenvalues in [1, cond] (as test_pallas_lin)."""
+    Q, _ = np.linalg.qr(rng.standard_normal((b, n, n)))
+    lams = np.exp(rng.uniform(0.0, np.log(cond), size=(b, n)))
+    K = np.einsum("bik,bk,bjk->bij", Q, lams, Q)
+    return 0.5 * (K + np.swapaxes(K, -1, -2))
+
+
+def _spd_ridge(rng, b, m):
+    """SPD + ridge systems like the polish Schur complement (as test_pallas_lin)."""
+    M = rng.standard_normal((b, m, m))
+    return M @ np.swapaxes(M, -1, -2) + 1e-3 * np.eye(m)
+
+
+def _admm_case(rng, b, n, m):
+    P = _random_spd(rng, b, n, cond=1e2)
+    A = rng.standard_normal((b, m, n))
+    rho = np.abs(rng.standard_normal((b, m))) + 0.5
+    sigma = 1e-6
+    K = P + sigma * np.eye(n) + np.einsum("bmi,bm,bmj->bij", A, rho, A)
+    return dict(
+        Kinv=np.linalg.inv(K), A=A, q=rng.standard_normal((b, n)),
+        l=-np.abs(rng.standard_normal((b, m))) - 0.1,
+        u=np.abs(rng.standard_normal((b, m))) + 0.1, rho_vec=rho,
+        x=rng.standard_normal((b, n)) * 0.1, z=np.zeros((b, m)), y=np.zeros((b, m)),
+    )
+
+
+ADMM_ARGS = ("Kinv", "A", "q", "l", "u", "rho_vec", "x", "z", "y")
+SIGMA, ALPHA, NUM = 1e-6, 1.6, 17
+
+
+def _jax_admm(case, i):
+    out = pallas_lin.admm_iterate(
+        *(jnp.asarray(case[k][i]) for k in ADMM_ARGS), NUM, SIGMA, ALPHA, interpret=True
+    )
+    return [np.asarray(o) for o in out]
+
+
+@pytest.fixture(scope="module")
+def cases():
+    """Inputs and the JAX kernels' interpret-mode results, computed once."""
+    rng = np.random.default_rng(11)
+    out = {}
+    for n, b in ((4, 5), (16, 5), (30, 5), (8, 3)):
+        K = _random_spd(rng, b, n)
+        out[f"b1_{n}"] = (K, np.asarray(pallas_lin.chol_inverse_base(jnp.asarray(K), interpret=True)))
+    for m, b in ((37, 1), (37, 3)):
+        K, rhs = _spd_ridge(rng, b, m), rng.standard_normal((b, m))
+        x = np.stack([np.asarray(pallas_lin.gj_solve(jnp.asarray(K[i]), jnp.asarray(rhs[i]),
+                                                     interpret=True)) for i in range(b)])
+        out[f"b3_{b}"] = (K, rhs, x)
+    for m, b in ((21, 1), (21, 3)):
+        K = _spd_ridge(rng, b, m)
+        Ki = np.stack([np.asarray(pallas_lin.gj_inverse(jnp.asarray(K[i]), interpret=True))
+                       for i in range(b)])
+        out[f"b2_{b}"] = (K, Ki)
+    for b in (1, 3):
+        case = _admm_case(rng, b, 13, 21)
+        res = [_jax_admm(case, i) for i in range(b)]
+        out[f"b4_{b}"] = (case, [np.stack(r) for r in zip(*res)])
+    return out
+
+
+def _close(t, j, rtol=RTOL, atol=ATOL):
+    assert tuple(t.shape) == np.shape(j)
+    np.testing.assert_allclose(t.numpy(), j, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("key", ["b1_4", "b1_16", "b1_30", "b1_8"])
+def test_chol_inverse_base_matches_pallas(cases, key):
+    K, W_jax = cases[key]
+    W = cuda_lin.chol_inverse_base(torch.tensor(K))
+    _close(W, W_jax)
+    # W'W K = I: the plain version is a true inverse factor.
+    resid = (W.mT @ W @ torch.tensor(K)).numpy() - np.eye(K.shape[-1])
+    assert np.abs(resid).max() < 1e-9
+
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_gj_solve_matches_pallas(cases, b):
+    K, rhs, x_jax = cases[f"b3_{b}"]
+    x = cuda_lin.gj_solve(torch.tensor(K), torch.tensor(rhs))
+    _close(x, x_jax)
+    np.testing.assert_allclose(x.numpy(), np.linalg.solve(K, rhs[..., None])[..., 0],
+                               rtol=1e-8, atol=1e-10)
+
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_gj_inverse_matches_pallas(cases, b):
+    K, Ki_jax = cases[f"b2_{b}"]
+    Ki = cuda_lin.gj_inverse(torch.tensor(K))
+    _close(Ki, Ki_jax)
+    np.testing.assert_allclose(Ki.numpy(), np.linalg.inv(K), rtol=1e-7, atol=1e-9)
+
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_admm_iterate_matches_pallas(cases, b):
+    case, (x_j, z_j, y_j) = cases[f"b4_{b}"]
+    x, z, y = cuda_lin.admm_iterate(*(torch.tensor(case[k]) for k in ADMM_ARGS),
+                                    NUM, SIGMA, ALPHA)
+    _close(x, x_j)
+    _close(z, z_j)
+    _close(y, y_j)
+
+
+def test_cpu_calls_never_reach_the_loader(cases, monkeypatch):
+    """A CPU tensor takes the plain version without building or loading the
+    CUDA library (this machine may have no nvcc and no card)."""
+
+    def refuse(*_a, **_k):
+        raise AssertionError("the CUDA library was requested for a CPU tensor")
+
+    monkeypatch.setattr(cuda_lin, "_lib", refuse)
+    monkeypatch.setattr(cuda_lin, "build", refuse)
+    before = cuda_lin.launch_counts()
+    K, _ = cases["b1_8"]
+    cuda_lin.chol_inverse_base(torch.tensor(K))
+    K, rhs, _ = cases["b3_3"]
+    cuda_lin.gj_solve(torch.tensor(K), torch.tensor(rhs))
+    cuda_lin.gj_inverse(torch.tensor(K))
+    case, _ = cases["b4_3"]
+    cuda_lin.admm_iterate(*(torch.tensor(case[k]) for k in ADMM_ARGS), NUM, SIGMA, ALPHA)
+    assert cuda_lin.launch_counts() == before  # plain versions count no launch
+
+
+def test_non_cpu_tensor_never_falls_back(monkeypatch):
+    """A tensor that is not on the CPU must launch the kernel or raise; here
+    a meta tensor is refused by the checks before any launch."""
+    monkeypatch.setattr(cuda_lin, "_lib", lambda: pytest.fail("no launch expected"))
+    K = torch.empty((2, 8, 8), dtype=torch.float32, device="meta")
+    b = torch.empty((2, 8), dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError):
+        cuda_lin.chol_inverse_base(K)
+    with pytest.raises(ValueError):
+        cuda_lin.gj_inverse(K)
+    with pytest.raises(ValueError):
+        cuda_lin.gj_solve(K, b)
+    with pytest.raises(ValueError):
+        cuda_lin.admm_iterate(K, K, b, b, b, b, b, b, b, 3, SIGMA, ALPHA)
