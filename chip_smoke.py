@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path once on one CUDA card, and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 The main path is the batched SRBD-MPC update of ``g1_locomotion_tpu_torch``
 (SRBD linearization -> ZOH -> condensation -> friction-cone rows ->
@@ -9,30 +9,41 @@ segmented ADMM with active-set polish -> rollout) at the G1's full width:
 N = 10, 120 decision variables, 200 constraint rows, float32, random
 initial states from a seeded generator. Phases, each of which must pass:
 
-0. build the four CUDA kernels from ``g1_locomotion_tpu_torch/csrc``;
+0. build the four CUDA kernels from ``g1_locomotion_tpu_torch/csrc`` (and,
+   beside them, the barrier probe that measures the one-SM bound's chain);
+   the register-tile Gauss-Jordan kernels must not spill;
 1. each kernel against its plain PyTorch version on the card, on inputs
-   recorded from the main path itself (so at the shapes it gives them);
+   recorded from the main path itself (so at the shapes it gives them), and
+   B2 / B3 also on random SPD systems at the main path's widths;
 2. throughput: one ``MPCSolver`` call at B = 4096 in the ``bench.py``
    configuration (matmul inverses, kernel B1); physical invariants; the
    first 256 instances against the plain-version path on the card;
 3. serving: 22 data-dependent B = 1 solves in the ``tools/bench_latency.py``
    configuration (kernels B2, B3, B4); the same invariants;
-4. timings with CUDA events (not counted as main-path launches).
+4. timings with CUDA events (not counted as main-path launches): each
+   kernel, its plain version and, where one PyTorch call computes the same
+   function, that call, in turns; beside them the card bound (bytes over the
+   memory rate, operations over the fp32 rate) and, for the kernels that the
+   serving path launches as one block, the one-SM bound.
 
-Launch counters are zeroed right before phase 2 and read right after
-phase 3; every kernel must have launched there. The line before the last
-is a JSON object with one entry per kernel; the last line is
-``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero,
-and so does a machine without a CUDA device.
+Launch counters are zeroed right before each path (phase 2, phase 3) and
+read right after it; every kernel must have launched as often as that path
+calls it. The line before the last is a JSON object with one entry per
+kernel; the last line is ``{"ok": true, "device": {...}}``. Any failure
+raises and exits non-zero, and so does a machine without a CUDA device.
+``--profile`` adds a ``torch.profiler`` pass over 50 serving solves (device
+busy share, device time by kernel); it is a measurement, not a check.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from statistics import median
 
 import torch
@@ -44,7 +55,22 @@ SERVING_CHAIN = 22  # data-dependent B = 1 solves (tools/bench_latency.py)
 DU0_MAX_N = 0.5     # |u0 kernel path - u0 plain path| bound [N]
 THROUGHPUT_BATCHES = 10  # timed B = 4096 batches
 SERVING_SAMPLES = 1000   # timed B = 1 solves: 10 samples beyond the p99
+PROFILE_SOLVES = 50      # serving solves under torch.profiler (--profile)
 SOURCE = "g1_locomotion_tpu_torch/csrc/lin_kernels.cu"
+# Launches each path must make: B1 four per 120-wide inverse (x 2 segments),
+# four for Hr, eight per 200-wide S (x 2 polish rounds); per serving solve B2
+# for both segments' K and Hr, B3 per polish round, B4 per segment.
+THROUGHPUT_LAUNCHES = {"chol_inverse_base": 28, "gj_inverse": 0, "gj_solve": 0,
+                       "admm_iterate": 0}
+SERVING_LAUNCHES = {"chol_inverse_base": 0, "gj_inverse": 3 * SERVING_CHAIN,
+                    "gj_solve": 2 * SERVING_CHAIN, "admm_iterate": 2 * SERVING_CHAIN}
+# The card's published peaks (NVIDIA H100 SXM data sheet): device memory rate,
+# fp32 rate outside the tensor cores, and that rate's share of one of 132 SMs.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12
+SM_COUNT = 132
+GJ_WARPS = 16   # warps per block of B2 / B3 (csrc/lin_kernels.cu)
+ADMM_WARPS = 8  # of B4
 REPLACES = {
     "chol_inverse_base": "g1_locomotion_tpu/ops/pallas_lin.py:118",
     "gj_inverse": "g1_locomotion_tpu/ops/pallas_lin.py:271",
@@ -202,6 +228,142 @@ def eye_residual(K: torch.Tensor, X: torch.Tensor) -> float:
     return float((K @ X - eye).abs().amax())
 
 
+def random_spd(b: int, n: int, cond: float, seed: int, device) -> torch.Tensor:
+    """(b, n, n) float32 SPD matrices with eigenvalues in [1, cond]."""
+    gen = torch.Generator().manual_seed(seed)
+    Q, _ = torch.linalg.qr(torch.randn((b, n, n), generator=gen, dtype=torch.float64))
+    lam = torch.exp(torch.rand((b, n), generator=gen, dtype=torch.float64)
+                    * torch.log(torch.tensor(cond, dtype=torch.float64)))
+    return ((Q * lam[:, None, :]) @ Q.mT).to(torch.float32).to(device)
+
+
+def work(name: str, args) -> dict:
+    """What one call of kernel `name` on `args` must do at the least: bytes
+    (each input read once, each output written once), floating-point
+    operations, and, for the kernels that run one instance as one block, the
+    dependent steps of the chain (each at least one exchange through shared
+    memory and one block barrier) with the block's warps."""
+    size = args[0].element_size()
+    if name == "chol_inverse_base":
+        b, n, _ = args[0].shape
+        # Cholesky n^3 / 3 and the triangular inverse n^3 / 3.
+        return {"bytes": 2 * b * n * n * size, "flops": b * 2 * n**3 / 3}
+    if name == "gj_inverse":
+        b, m, _ = args[0].shape
+        return {"bytes": 2 * b * m * m * size, "flops": b * 2 * m**3,
+                "steps": m, "warps": GJ_WARPS}
+    if name == "gj_solve":
+        b, m, _ = args[0].shape
+        # The least for one right-hand side: elimination below the diagonal
+        # (2/3 m^3) and two triangular solves (4 m^2, dropped); the kernel's
+        # Gauss-Jordan order does m^3.
+        return {"bytes": b * (m * m + 2 * m) * size, "flops": b * 2 * m**3 / 3,
+                "steps": m, "warps": GJ_WARPS}
+    b, m, n = args[1].shape
+    num = args[9]
+    # Per iteration K^-1 rhs, A' w and A x~ (2 n^2 + 4 m n) and ~10 (n + m) of
+    # vector updates; four dependent block-wide stages (w, rhs, x~, z~).
+    return {"bytes": b * (n * n + m * n + 3 * n + 7 * m) * size,
+            "flops": b * num * (2 * n * n + 4 * m * n + 10 * (n + m)),
+            "steps": 4 * num, "warps": ADMM_WARPS}
+
+
+def library_call(name: str, args):
+    """(what it is, a function making the one PyTorch call that computes the
+    kernel's function on `args`), or None where there is no such call. A
+    yardstick only: the port never calls these."""
+    if name == "gj_inverse":
+        return "torch.linalg.inv", lambda: torch.linalg.inv(args[0])
+    if name == "gj_solve":
+        return "torch.linalg.solve", lambda: torch.linalg.solve(args[0], args[1][..., None])
+    return None
+
+
+def barrier_chain_us(lib_path, warps: int, device) -> float:
+    """Microseconds per step of the barrier probe's chain (one warp's store
+    to shared memory, one block barrier, all warps' load) in one block of
+    `warps` warps: the slope between two chain lengths."""
+    lib = ctypes.CDLL(str(lib_path))
+    lib.probe_barrier_chain.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_void_p]
+    lib.probe_barrier_chain.restype = ctypes.c_int
+    out = torch.empty(warps * 32, dtype=torch.float32, device=device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+    def launch(steps):
+        err = lib.probe_barrier_chain(out.data_ptr(), steps, warps, stream)
+        if err != 0:
+            raise RuntimeError(f"probe_barrier_chain: CUDA error {err} at launch")
+
+    short, long = 1000, 5000
+    return (cuda_ms(lambda: launch(long), reps=20)
+            - cuda_ms(lambda: launch(short), reps=20)) / (long - short) * 1e3
+
+
+def cases_b1(calls):
+    """B1's main-path inputs, one per block size, widest first."""
+    widths = sorted({key[0] for key, _ in calls["chol_inverse_base"]}, key=lambda s: -s[-1])
+    return [next(args for key, args in calls["chol_inverse_base"] if key[0] == w)
+            for w in widths]
+
+
+def kernel_id(device_kernel_name: str) -> str:
+    """B1-B4 for the port's own kernels (plain or mangled name), else 'other ops'."""
+    for mark, key in (("gj_tile_kernel<true", "B3"), ("gj_tile_kernelILb1", "B3"),
+                      ("gj_tile_kernel<false", "B2"), ("gj_tile_kernelILb0", "B2"),
+                      ("gj_smem_kernel", "B2/B3 shared-memory kernel"),
+                      ("admm_kernel", "B4"), ("chol_inv_base_kernel", "B1")):
+        if mark in device_kernel_name:
+            return key
+    return "other ops"
+
+
+def profile_serving(solve_once, gpu: str) -> None:
+    """torch.profiler over PROFILE_SOLVES serving solves: the device-busy share
+    of the wall time (union of the device kernels' intervals) and the device
+    time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    solve_once()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PROFILE_SOLVES):
+        solve_once()
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - t0) / PROFILE_SOLVES * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_SOLVES):
+            solve_once()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / PROFILE_SOLVES * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        print(f"[{gpu}] serving profile: the profiler recorded no device events; not measured")
+        return
+    busy, edge, by_name = 0.0, spans[0][0], {}
+    for start, end, name in spans:
+        busy += max(0.0, end - max(start, edge))
+        edge = max(edge, end)
+        by_name[name] = by_name.get(name, 0.0) + (end - start)
+    busy_ms = busy / 1e3 / PROFILE_SOLVES
+    print(f"[{gpu}] serving profile over {PROFILE_SOLVES} solves: wall {plain_wall:.3f} ms per "
+          f"solve unprofiled, {wall:.3f} ms profiled; {len(spans) / PROFILE_SOLVES:.0f} device "
+          f"kernels per solve; device busy {busy_ms:.3f} ms per solve = "
+          f"{100 * busy_ms / plain_wall:.1f}% of the unprofiled wall, "
+          f"{100 * busy_ms / wall:.1f}% of the profiled")
+    mine = {}
+    for name, us in by_name.items():
+        key = kernel_id(name)
+        mine[key] = mine.get(key, 0.0) + us / 1e3 / PROFILE_SOLVES
+    print(f"[{gpu}] serving profile, device ms per solve by kernel: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(mine.items())))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    for name, us in top:
+        print(f"  {us / 1e3 / PROFILE_SOLVES:.4f} ms per solve  {name[:110]}")
+
+
 def compare_kernels(calls, gen_device) -> dict:
     """Phase 1: every kernel against its plain version on the same inputs on
     the card. Returns {name: max_abs_err} over the checked inputs."""
@@ -227,6 +389,22 @@ def compare_kernels(calls, gen_device) -> dict:
               f"max|W'WK - I| {res:.3e} (<= 5e-3)")
         if not (err <= 2e-4 and res <= 5e-3):
             raise AssertionError("B1 disagrees with its plain version on random SPD blocks")
+
+    # B2 / B3 on random SPD systems at the main path's widths, cond 1e2,
+    # B = 3: within 2e-4 of the plain version (tests/test_torch_cuda_kernels.py).
+    K = random_spd(3, 120, 1e2, 3, gen_device)
+    X, X_ref = cuda_lin.gj_inverse(K), cuda_lin.gj_inverse_ref(K)
+    S = random_spd(3, 200, 1e2, 4, gen_device)
+    b = torch.randn((3, 200), generator=torch.Generator().manual_seed(5)).to(gen_device)
+    x, x_ref = cuda_lin.gj_solve(S, b), cuda_lin.gj_solve_ref(S, b)
+    torch.cuda.synchronize()
+    for label, got, ref in (("B2 random SPD (3, 120, 120)", X, X_ref),
+                            ("B3 random SPD (3, 200, 200)", x, x_ref)):
+        worst = float(((got - ref).abs() - 2e-4 * ref.abs()).max())
+        print(f"{label}: max abs err {float((got - ref).abs().max()):.3e} "
+              f"(|err| <= 2e-4 + 2e-4 |ref|)")
+        if not worst <= 2e-4:
+            raise AssertionError(f"{label}: kernel disagrees with its plain version")
 
     # Every kernel on the inputs the main path gave it.
     for key, args in calls["chol_inverse_base"]:
@@ -286,8 +464,11 @@ def compare_kernels(calls, gen_device) -> dict:
     return errs
 
 
-def main() -> None:
+def main(argv) -> None:
     from g1_locomotion_tpu_torch._device import require_cuda
+
+    if argv not in ([], ["--profile"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--profile]")
 
     device = require_cuda()
     from g1_locomotion_tpu_torch.ops import cuda_lin
@@ -298,13 +479,25 @@ def main() -> None:
     print(f"device: {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     dtype = torch.float32
 
-    # Phase 0: build from the checkout's sources.
-    path, seconds, log = cuda_lin.build(verbose=True)
+    # Phase 0: build from the checkout's sources, both libraries at once.
+    probe_source = cuda_lin.SOURCE.with_name("barrier_probe.cu")
+    with ThreadPoolExecutor(2) as pool:
+        kernels_build = pool.submit(cuda_lin.build, verbose=True)
+        probe_build = pool.submit(cuda_lin.build, verbose=True, source=probe_source)
+        (path, seconds, log), (probe_path, probe_seconds, _) = (kernels_build.result(),
+                                                                probe_build.result())
     cuda_lin._lib()
-    print(f"phase 0 build: {seconds:.1f} s -> {path.name}")
+    print(f"phase 0 build: {seconds:.1f} s -> {path.name}; {probe_seconds:.1f} s -> "
+          f"{probe_path.name}")
+    entry = ""
     for line in log.splitlines():
+        if "Compiling entry" in line:
+            entry = line
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+        if ("spill" in line and "gj_tile_kernel" in entry and not line.strip().startswith(
+                "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")):
+            raise AssertionError(f"a register-tile Gauss-Jordan kernel spills: {line.strip()}")
 
     thr_cfg, srv_cfg = configs()
     thr, srv = solver_for(thr_cfg, device, dtype), solver_for(srv_cfg, device, dtype)
@@ -320,15 +513,17 @@ def main() -> None:
     errs = compare_kernels(calls, device)
     print("phase 1 kernels vs plain versions: ok")
 
-    # Phases 2 and 3: the main path, counted.
+    # Phases 2 and 3: the main path, each path counted on its own.
     cuda_lin.reset_launch_counts()
     t0 = time.perf_counter()
     sol = run(thr, inp)
     torch.cuda.synchronize()
+    thr_launches = cuda_lin.launch_counts()
     print(f"phase 2 throughput: B={B_THROUGHPUT} solved in {time.perf_counter() - t0:.3f} s "
-          f"(first call, host clock)")
-    if cuda_lin.launch_counts()["chol_inverse_base"] == 0:
-        raise AssertionError("throughput path did not launch kernel B1")
+          f"(first call, host clock); launches {thr_launches}")
+    if thr_launches != THROUGHPUT_LAUNCHES:
+        raise AssertionError(f"throughput path launched {thr_launches}, "
+                             f"expected {THROUGHPUT_LAUNCHES}")
     check_invariants(sol, inp["contact"], "phase 2 throughput")
     with plain_kernels():
         ref = run(thr, inp, slice(0, B_COMPARE))
@@ -346,13 +541,18 @@ def main() -> None:
 
     one = bench_inputs(1, device, dtype)  # instance 0 is standing
     x = one["x0"]
+    cuda_lin.reset_launch_counts()
     for _ in range(SERVING_CHAIN):
         s1 = srv(x, one["x_ref"], one["contact"], one["c_hor"], one["p_hor"])
         x = x + 1e-9 * torch.nn.functional.pad(s1.u0, (0, 1))  # data dependence
     torch.cuda.synchronize()
     check_invariants(s1, one["contact"], f"phase 3 serving ({SERVING_CHAIN}-solve chain)")
-    launches = cuda_lin.launch_counts()
-    print(f"main-path launches: {launches}")
+    srv_launches = cuda_lin.launch_counts()
+    if srv_launches != SERVING_LAUNCHES:
+        raise AssertionError(f"serving path launched {srv_launches}, expected {SERVING_LAUNCHES}")
+    launches = {name: thr_launches[name] + srv_launches[name] for name in REPLACES}
+    print(f"main-path launches: {launches} (throughput batch {thr_launches}; "
+          f"{SERVING_CHAIN}-solve serving chain {srv_launches})")
     for name, count in launches.items():
         if count == 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
@@ -379,23 +579,71 @@ def main() -> None:
           f"p99 {float(lat_t.quantile(0.99)):.3f} ms over {len(lat)} sequential solves "
           f"(host clock, synchronized)")
 
-    timing = {}  # {name: (kernel ms, plain ms)} at the first (widest) shape
+    if argv == ["--profile"]:
+        profile_serving(lambda: srv(x, one["x_ref"], one["contact"], one["c_hor"], one["p_hor"]),
+                        gpu)
+
+    # Each kernel beside its plain version, its library call and its bounds.
+    # B1 at each block size of the throughput path, widest first; B2-B4 on
+    # one serving instance. The kernel and the library call are timed in
+    # turns, ROUNDS times REPS launches each, and the medians kept.
+    ROUNDS, REPS = 5, 20
+    chain_us = {w: barrier_chain_us(probe_path, w, device) for w in (GJ_WARPS, ADMM_WARPS)}
+    for w, us in chain_us.items():
+        print(f"[{gpu}] barrier chain, one block of {w} warps: {us:.4f} us per step "
+              f"(store to shared memory, block barrier, load)")
+    rows = {}  # {name: the kernels-line numbers at the first (widest) shape}
     for name in REPLACES:
         kernel, plain = getattr(cuda_lin, name), cuda_lin.PLAIN[name]
-        # The slice's shapes: B1 at each block size of the throughput path,
-        # widest first; B2-B4 on one serving instance.
         if name == "chol_inverse_base":
-            widths = sorted({key[0] for key, _ in calls[name]}, key=lambda s: -s[-1])
-            cases = [next(args for key, args in calls[name] if key[0] == w) for w in widths]
+            cases = cases_b1(calls)
         else:
             cases = [[a[:1].contiguous() if isinstance(a, torch.Tensor) else a
                       for a in calls[name][0][1]]]
         for args in cases:
-            k_ms = cuda_ms(lambda: kernel(*args), reps=20)
+            lib = library_call(name, args)
+            k_all, l_all = [], []
+            for _ in range(ROUNDS):
+                k_all.append(cuda_ms(lambda: kernel(*args), reps=REPS))
+                if lib:
+                    l_all.append(cuda_ms(lib[1], reps=REPS))
+            k_ms, l_ms = median(k_all), (median(l_all) if lib else None)
             p_ms = cuda_ms(lambda: plain(*args), reps=5)
-            timing.setdefault(name, (k_ms, p_ms))
-            print(f"[{gpu}] {name} at {tuple(args[0].shape)}: kernel {k_ms:.4f} ms, "
-                  f"plain {p_ms:.4f} ms")
+            need = work(name, args)
+            bound_ms, bound_by = max((need["bytes"] / PEAK_BYTES_PER_S * 1e3, "bytes"),
+                                     (need["flops"] / PEAK_FP32_FLOPS * 1e3, "operations"))
+            rows.setdefault(name, {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                                   "bound_by": bound_by, "library_ms": l_ms})
+            line = (f"[{gpu}] {name} at {tuple(args[0].shape)}: kernel {k_ms:.4f} ms "
+                    f"(rounds {min(k_all):.4f}-{max(k_all):.4f}), plain {p_ms:.4f} ms, "
+                    f"card bound {bound_ms:.6f} ms by {bound_by} "
+                    f"({need['bytes']} B, {need['flops']:.0f} flop)")
+            if lib:
+                line += (f", {lib[0]} {l_ms:.4f} ms (rounds {min(l_all):.4f}-{max(l_all):.4f}), "
+                         f"kernel / library {k_ms / l_ms:.3f}")
+            if "steps" in need:
+                ops_ms = need["flops"] / (PEAK_FP32_FLOPS / SM_COUNT) * 1e3
+                chain_ms = need["steps"] * chain_us[need["warps"]] / 1e3
+                one_sm = max(ops_ms, chain_ms)
+                line += (f"; one-SM bound {one_sm:.4f} ms (operations at 1/{SM_COUNT} of the "
+                         f"fp32 rate {ops_ms:.4f} ms, chain of {need['steps']} steps "
+                         f"{chain_ms:.4f} ms), kernel / one-SM bound {k_ms / one_sm:.2f}, "
+                         f"{k_ms / need['steps'] * 1e3:.3f} us per step")
+            print(line)
+
+    # Yardsticks that take more than one PyTorch call (printed, not in the
+    # kernels line): B2 by Cholesky, and B1 as a factorization and a solve.
+    K2 = next(a[0][:1].contiguous() for _, a in calls["gj_inverse"])
+    ms_chol = cuda_ms(lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(K2).L), reps=REPS)
+    print(f"[{gpu}] gj_inverse at {tuple(K2.shape)}: torch.linalg.cholesky_ex + "
+          f"torch.cholesky_inverse (a pair) {ms_chol:.4f} ms")
+    for args in cases_b1(calls):
+        K1 = args[0]
+        eye = torch.eye(K1.shape[-1], device=device, dtype=K1.dtype).expand_as(K1)
+        ms_pair = cuda_ms(lambda: torch.linalg.solve_triangular(
+            torch.linalg.cholesky_ex(K1).L, eye, upper=False), reps=5)
+        print(f"[{gpu}] chol_inverse_base at {tuple(K1.shape)}: torch.linalg.cholesky_ex + "
+              f"torch.linalg.solve_triangular on the identity (a pair) {ms_pair:.4f} ms")
 
     # For later perf work: the recursion ending in B1 against the library
     # Cholesky inverse at the throughput K's size. Recorded, not switched.
@@ -411,8 +659,7 @@ def main() -> None:
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-         "launches": launches[name], "max_abs_err": errs[name],
-         "ms": timing[name][0], "plain_ms": timing[name][1]}
+         "launches": launches[name], "max_abs_err": errs[name], **rows[name]}
         for name in REPLACES
     ]
     print(json.dumps({"kernels": kernels}))
@@ -422,5 +669,5 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])
     sys.stdout.flush()

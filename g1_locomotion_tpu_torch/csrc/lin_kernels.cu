@@ -29,10 +29,21 @@ constexpr int kWarp = 32;
 // Largest dynamic shared memory a block may use on Hopper (227 KB).
 constexpr size_t kMaxSmem = 232448;
 
-cudaError_t allow_smem(const void* kernel, size_t bytes) {
+constexpr int kMaxDevices = 64;
+
+// Raise `kernel`'s dynamic shared memory limit to the block maximum, once per
+// kernel (each caller passes its own `raised` table) and device.
+cudaError_t allow_smem(const void* kernel, size_t bytes, bool (&raised)[kMaxDevices]) {
   if (bytes > kMaxSmem) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidValue;
+  if (raised[device]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kMaxSmem));
+  raised[device] = (err == cudaSuccess);
+  return err;
 }
 
 // ---------------------------------------------------------------------------
@@ -117,7 +128,9 @@ cudaError_t launch_chol_inv_base(const T* K, T* W, int batch, int n, cudaStream_
   if (batch <= 0) return cudaSuccess;
   if (n < 1 || n > kWarp) return cudaErrorInvalidValue;
   const size_t smem = sizeof(T) * kBaseMatsPerBlock * 2 * kWarp * kBaseLd;
-  cudaError_t err = allow_smem(reinterpret_cast<const void*>(&chol_inv_base_kernel<T>), smem);
+  static bool raised[kMaxDevices] = {};
+  cudaError_t err =
+      allow_smem(reinterpret_cast<const void*>(&chol_inv_base_kernel<T>), smem, raised);
   if (err != cudaSuccess) return err;
   const dim3 block(kWarp, kBaseMatsPerBlock);
   const dim3 grid((batch + kBaseMatsPerBlock - 1) / kBaseMatsPerBlock);
@@ -126,99 +139,350 @@ cudaError_t launch_chol_inv_base(const T* K, T* W, int batch, int n, cudaStream_
 }
 
 // ---------------------------------------------------------------------------
-// B2 / B3: unpivoted Gauss-Jordan elimination on an augmented system.
+// B2 / B3: unpivoted Gauss-Jordan elimination, in place.
 //
 // Replace g1_locomotion_tpu/ops/pallas_lin.py:gj_inverse (its inner
-// `kernel`) and :gj_solve (_gj_solve_kernel): K^-1 by elimination on
-// [K | I], and x = K^-1 b by elimination on [K | b]. Step j scales row j by
-// nothing and subtracts f_i * row_j from every other row, f_i = a_ij / a_jj;
-// after m steps the left block is diagonal and each result row is divided
-// by its diagonal entry. No pivoting: the systems are SPD + ridge (the QP's
-// KKT matrix and the polish Hr and Schur complement), where unpivoted
-// elimination is stable. Do not use it on general matrices.
+// `kernel`) and :gj_solve (_gj_solve_kernel): K^-1 of an SPD + ridge K, and
+// x = S^-1 b. The pivots are taken in the same order as there, without
+// pivoting: the systems are SPD + ridge (the QP's KKT matrix, the polish Hr
+// and Schur complement), where that is stable. Do not use it on general
+// matrices. Step j, on the m x w array (w = m for B2, m + 1 for B3 with b
+// as the last column):
+//   col = column j with its entry j set to 0;       (the factors)
+//   B2 only: column j := e_j;                       (the inverse's column j
+//                                                    takes the place of the
+//                                                    eliminated column)
+//   row j := row j * (1 / a_jj);                    (normalised pivot row)
+//   every row r: row r -= col[r] * row j.
+// After m steps the array holds K^-1 (B2), or x in its last column (B3).
+// B3 touches only columns > j: a column left of the pivot is never read
+// again. So B2 does m^3 multiply-adds on m x m values (no [K | I], half the
+// work and half the memory of an augmented system), B3 m^3 / 2.
 //
-// What bounds it: m dependent elimination steps, each a rank-1 update of the
-// whole augmented matrix (m x 2m for B2 at m = 120, m x (m+1) for B3 at
-// m = 200): ~2m^3 flops of shared-memory read-modify-write and two block
-// barriers per step; the data (115 KB / 161 KB at f32) is read from device
-// memory once. Design: one block per instance, the augmented matrix
-// resident in dynamic shared memory (above 48 KB, raised with
-// cudaFuncSetAttribute), one warp per row so each row update is a
-// conflict-free sweep along the row.
+// What bounds it: at B = 1 one instance is one block on one SM, so the
+// yardsticks are that SM's rates, 128 multiply-adds and four issues (one a
+// scheduler) a clock, and the chain of m dependent steps, each of which
+// must pass the pivot row and column from their owners to all warps through
+// shared memory and a block barrier. The card's memory rate and its other
+// 131 SMs do not enter: the matrix is read from device memory once and the
+// result written once.
+//
+// Design (gj_tile_kernel, float32 up to the tile's size): the matrix lives
+// in registers. Warp ty, lane tx owns rows ty + W * i and columns
+// tx + 32 * k, an R x C tile, so a step costs a thread about R / 4 + C
+// shared-memory loads (its factors, 16 bytes at a time, and its pivot-row
+// entries) for R * C multiply-adds, where a matrix kept in shared memory
+// costs three accesses per multiply-add. Register tiles need constant
+// indices: the step loop is unrolled over the row block i of the pivot,
+// which also fixes the pivot's column chunk k, and B3 starts its update at
+// that chunk (the dead chunks cost nothing). One barrier per step: each
+// step first brings the next pivot's column (every warp) and row (its owner
+// warp) up to date, and their owners publish them to shared memory straight
+// from their registers, into the buffer the step is not reading; the rest
+// of the tile is updated behind that, and the barrier ends the step. What a
+// step costs beyond its multiply-adds is the instructions around them, in
+// every warp: keep them few. Rows and columns beyond m are zero and are
+// never pivots, so padding cannot make a zero pivot.
+//
+// gj_smem_kernel does the same arithmetic with the array in dynamic shared
+// memory, one warp per row and three barriers per step, for float64 and for
+// float32 systems larger than the tile. The main path does not reach it.
 // ---------------------------------------------------------------------------
 
-constexpr int kGjRowsPerPass = 16;  // warps per block
+constexpr int kGjInverseW = 16;  // B2 tile: 16 warps, 8 x 4 a thread: 128 x 128
+constexpr int kGjInverseR = 8;
+constexpr int kGjInverseC = 4;
+constexpr int kGjSolveW = 16;  // B3 tile: 16 warps, 13 x 7 a thread: 208 x 224 (with b)
+constexpr int kGjSolveR = 13;
+constexpr int kGjSolveC = 7;
+constexpr int kGjSmemWarps = 16;  // gj_smem_kernel
+// Buffers for the published pivots, taken in turns: step j reads pivot j's
+// while it publishes pivot j + 1's, with one barrier between steps.
+constexpr int kGjBufs = 2;
 
-template <typename T>
-__device__ void gj_eliminate(T* aug, T* f, int m, int w) {
-  const int tid = threadIdx.y * kWarp + threadIdx.x;
-  const int nthreads = kWarp * kGjRowsPerPass;
-  for (int j = 0; j < m; ++j) {
-    const T piv = aug[j * w + j];
-    for (int r = tid; r < m; r += nthreads) f[r] = (r == j) ? T(0) : aug[r * w + j] / piv;
-    __syncthreads();
-    const T* prow = aug + j * w;
-    for (int r = threadIdx.y; r < m; r += kGjRowsPerPass) {
-      if (r == j) continue;
-      const T fr = f[r];
-      T* row = aug + r * w;
-      for (int c = threadIdx.x; c < w; c += kWarp) row[c] -= fr * prow[c];
+__host__ __device__ constexpr int round_up4(int n) { return (n + 3) / 4 * 4; }
+
+__device__ __forceinline__ unsigned smem_addr(const void* ptr) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+}
+// Accesses at a 32-bit shared address that is worked out once: through a
+// pointer the compiler rebuilds the address at every access.
+__device__ __forceinline__ float4 lds128(unsigned addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ float lds32(unsigned addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void sts32(unsigned addr, float v) {
+  asm volatile("st.shared.f32 [%0], %1;" ::"r"(addr), "f"(v) : "memory");
+}
+__device__ __forceinline__ void sts128(unsigned addr, float x, float y, float z, float w) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(addr), "f"(x), "f"(y), "f"(z),
+               "f"(w)
+               : "memory");
+}
+
+// The register tile of one thread, W warps a block: a[i][k] is the element in
+// row ty + W * i, column tx + 32 * k. The published factors lie warp by warp
+// (float ty * RP + i of a column buffer), so that a thread reads its own 16
+// bytes at a time; the published pivot row lies as the row does (float
+// tx + 32 * k of a row buffer), read one chunk at a time to keep few of its
+// values in registers at once.
+template <bool kSolve, int W, int R, int C>
+struct GjTile {
+  static constexpr int RP = round_up4(R);
+  static constexpr int kColBytes = W * RP * 4;     // one buffer of published factors
+  static constexpr int kRowBytes = kWarp * C * 4;  // one of the normalised pivot row
+  float a[R][C];
+  unsigned col, row;  // shared addresses of this warp's factors, this lane's row entries
+  int tx, ty;
+
+  // Pivot j = W * ib + jj lies in column chunk chunk(ib), lane lane(ib, jj).
+  // Both are constants where ib is one (an unrolled loop).
+  static __device__ __forceinline__ int chunk(int ib) { return (ib * W) / kWarp; }
+  static __device__ __forceinline__ int lane(int ib, int jj) { return (ib * W) % kWarp + jj; }
+
+  // Publish pivot (ib, jj)'s column, which its owners hold up to date: the
+  // factors of the step. For the inverse the owners clear it afterwards
+  // (clear_col), so that the step leaves column j of the inverse there.
+  __device__ __forceinline__ void publish_col(int ib, int jj, int buf) {
+    const int kb = chunk(ib);
+    if (tx == lane(ib, jj)) {
+      // One lane a warp stores, so each store is a turn of the SM's one
+      // shared-memory pipe whatever its width: 16 bytes at a time.
+      const unsigned dst = col + buf * kColBytes;
+#pragma unroll
+      for (int i = 0; i + 4 <= R; i += 4) {
+        sts128(dst + 4 * i, a[i][kb], a[i + 1][kb], a[i + 2][kb], a[i + 3][kb]);
+      }
+#pragma unroll
+      for (int i = R / 4 * 4; i < R; ++i) sts32(dst + 4 * i, a[i][kb]);
+    }
+  }
+  __device__ __forceinline__ void clear_col(int ib, int jj) {
+    const int kb = chunk(ib);
+    if (!kSolve && tx == lane(ib, jj)) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        if (!(i == ib && ty == jj)) a[i][kb] = 0.0f;  // the pivot's place holds 1 / pivot
+      }
+    }
+  }
+
+  // Normalise and publish pivot (ib, jj)'s row, in its owner warp; `piv` is
+  // the pivot. The inverse puts 1 / pivot where the pivot was. The solve
+  // leaves the chunks left of the pivot's as they are: no step reads them
+  // again.
+  __device__ __forceinline__ void publish_row(int ib, int jj, int buf, float piv) {
+    const int kb = chunk(ib);
+    const int k0 = kSolve ? kb : 0;
+    const float inv = 1.0f / piv;
+#pragma unroll
+    for (int k = k0; k < C; ++k) {
+      const bool pivot = !kSolve && k == kb && tx == lane(ib, jj);
+      a[ib][k] = pivot ? inv : a[ib][k] * inv;
+      sts32(row + buf * kRowBytes + 4 * kWarp * k, a[ib][k]);
+    }
+  }
+
+  __device__ __forceinline__ float pivot_of(int ib, int jj) {
+    return __shfl_sync(kFullMask, a[ib][chunk(ib)], lane(ib, jj));
+  }
+
+  // Step of pivot (ib, jj), which is published in buffer jj % kGjBufs:
+  // subtract factor * pivot row from every row, in an order that brings the
+  // next pivot's column and (in its owner warp) row up to date first; their
+  // owners publish them (if `next`) before the warp updates the rest of its
+  // tile, and one barrier ends the step. (ibn, jjn) is the next pivot.
+  __device__ __forceinline__ void step(int ib, int jj, int ibn, int jjn, bool next) {
+    const unsigned prow = row + (jj % kGjBufs) * kRowBytes;
+    const int bufn = (jj + 1) % kGjBufs;
+    const int k0 = kSolve ? chunk(ib) : 0;
+    const int kbn = chunk(ibn);
+    float f[RP];
+#pragma unroll
+    for (int q = 0; q < RP / 4; ++q) {
+      const float4 v = lds128(col + (jj % kGjBufs) * kColBytes + 16 * q);
+      f[4 * q] = v.x, f[4 * q + 1] = v.y, f[4 * q + 2] = v.z, f[4 * q + 3] = v.w;
+    }
+    if (ty == jj) f[ib] = 0.0f;  // the pivot row itself stays as normalised
+    const float pn = lds32(prow + 4 * kWarp * kbn);
+#pragma unroll
+    for (int i = 0; i < R; ++i) a[i][kbn] -= f[i] * pn;
+    const bool owner = next && ty == jjn;
+    if (next) publish_col(ibn, jjn, bufn);
+    if (owner) {
+      const float piv = pivot_of(ibn, jjn);
+#pragma unroll
+      for (int k = k0; k < C; ++k) {
+        if (k != kbn) a[ibn][k] -= f[ibn] * lds32(prow + 4 * kWarp * k);
+      }
+      publish_row(ibn, jjn, bufn, piv);
+    }
+    if (next) clear_col(ibn, jjn);
+#pragma unroll
+    for (int k = k0; k < C; ++k) {
+      if (k == kbn) continue;
+      const float pk = lds32(prow + 4 * kWarp * k);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        if (!(owner && i == ibn)) a[i][k] -= f[i] * pk;
+      }
     }
     __syncthreads();
+  }
+};
+
+template <bool kSolve, int W, int R, int C>
+__global__ void __launch_bounds__(kWarp * W, 1)
+    gj_tile_kernel(const float* __restrict__ K, const float* __restrict__ rhs,
+                   float* __restrict__ out, int m) {
+  static_assert(kWarp % W == 0, "a row block lies in one column chunk");
+  static_assert(W % kGjBufs == 0, "pivot j lies in buffer (j % W) % kGjBufs");
+  using Tile = GjTile<kSolve, W, R, C>;
+  __shared__ float4 colbuf[kGjBufs][W * Tile::RP / 4];
+  __shared__ float rowbuf[kGjBufs][kWarp * C];
+  Tile t;
+  t.tx = threadIdx.x;
+  t.ty = threadIdx.y;
+  t.col = smem_addr(&colbuf[0][t.ty * (Tile::RP / 4)]);
+  t.row = smem_addr(&rowbuf[0][t.tx]);
+  const size_t b = blockIdx.x;
+  const float* Kb = K + b * m * m;
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int r = t.ty + W * i;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const int c = t.tx + kWarp * k;
+      float v = 0.0f;
+      if (r < m) {
+        if (c < m) {
+          v = Kb[r * m + c];
+        } else if (kSolve && c == m) {
+          v = rhs[b * m + r];
+        }
+      }
+      t.a[i][k] = v;
+    }
+  }
+
+  {
+    float piv = 0.0f;
+    if (t.ty == 0) piv = t.pivot_of(0, 0);
+    t.publish_col(0, 0, 0);
+    if (t.ty == 0) t.publish_row(0, 0, 0, piv);
+    t.clear_col(0, 0);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int ib = 0; ib < R; ++ib) {
+    const int j0 = ib * W;
+    for (int jj = 0; jj < W - 1; ++jj) {
+      if (j0 + jj >= m) break;
+      t.step(ib, jj, ib, jj + 1, j0 + jj + 1 < m);
+    }
+    // The block's last pivot hands over to the next block's first.
+    const int j = j0 + W - 1;
+    if (j < m) t.step(ib, W - 1, ib + 1 < R ? ib + 1 : ib, 0, j + 1 < m);
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int r = t.ty + W * i;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const int c = t.tx + kWarp * k;
+      if (kSolve) {
+        if (r < m && c == m) out[b * m + r] = t.a[i][k];
+      } else {
+        if (r < m && c < m) out[b * m * m + r * m + c] = t.a[i][k];
+      }
+    }
   }
 }
 
 template <typename T, bool kSolve>
-__global__ void gj_kernel(const T* __restrict__ K, const T* __restrict__ rhs, T* __restrict__ out,
-                          int m) {
+__global__ void gj_smem_kernel(const T* __restrict__ K, const T* __restrict__ rhs,
+                               T* __restrict__ out, int m) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* aug = reinterpret_cast<T*>(smem_raw);
-  const int w = kSolve ? m + 1 : 2 * m;
-  T* f = aug + m * w;
+  const int w = kSolve ? m + 1 : m;
+  T* arr = reinterpret_cast<T*>(smem_raw);  // (m, w)
+  T* col = arr + m * w;                     // (m)
   const size_t b = blockIdx.x;
-  const T* Kb = K + b * m * m;
+  const int tid = threadIdx.y * kWarp + threadIdx.x;
+  const int nthreads = kWarp * kGjSmemWarps;
 
-  for (int r = threadIdx.y; r < m; r += kGjRowsPerPass) {
-    for (int c = threadIdx.x; c < w; c += kWarp) {
-      T v;
-      if (c < m) {
-        v = Kb[r * m + c];
-      } else if (kSolve) {
-        v = rhs[b * m + r];
-      } else {
-        v = (c - m == r) ? T(1) : T(0);
-      }
-      aug[r * w + c] = v;
-    }
+  for (int idx = tid; idx < m * w; idx += nthreads) {
+    const int r = idx / w;
+    const int c = idx % w;
+    arr[idx] = c < m ? K[b * m * m + r * m + c] : rhs[b * m + r];
   }
   __syncthreads();
 
-  gj_eliminate(aug, f, m, w);
-
-  if (kSolve) {
-    const int tid = threadIdx.y * kWarp + threadIdx.x;
-    for (int r = tid; r < m; r += kWarp * kGjRowsPerPass) {
-      out[b * m + r] = aug[r * w + m] / aug[r * w + r];
+  for (int j = 0; j < m; ++j) {
+    const int c0 = kSolve ? j + 1 : 0;
+    T* prow = arr + j * w;
+    const T inv = T(1) / prow[j];
+    for (int r = tid; r < m; r += nthreads) col[r] = (r == j) ? T(0) : arr[r * w + j];
+    __syncthreads();
+    for (int c = c0 + tid; c < w; c += nthreads) {
+      prow[c] = (!kSolve && c == j) ? inv : prow[c] * inv;
     }
-  } else {
-    for (int r = threadIdx.y; r < m; r += kGjRowsPerPass) {
-      const T diag = aug[r * w + r];
-      for (int c = threadIdx.x; c < m; c += kWarp) {
-        out[b * m * m + r * m + c] = aug[r * w + m + c] / diag;
+    __syncthreads();
+    for (int r = threadIdx.y; r < m; r += kGjSmemWarps) {
+      if (r == j) continue;
+      const T f = col[r];
+      T* row = arr + r * w;
+      for (int c = c0 + threadIdx.x; c < w; c += kWarp) {
+        const T v = (!kSolve && c == j) ? T(0) : row[c];
+        row[c] = v - f * prow[c];
       }
     }
+    __syncthreads();
+  }
+
+  if (kSolve) {
+    for (int r = tid; r < m; r += nthreads) out[b * m + r] = arr[r * w + m];
+  } else {
+    for (int idx = tid; idx < m * m; idx += nthreads) out[b * m * m + idx] = arr[idx];
   }
 }
 
+// `tile` picks the register-tile kernel (float32 only, m within the tile);
+// the caller decides (ops/cuda_lin.py:gj_plan) and a misfit is refused here.
 template <typename T, bool kSolve>
-cudaError_t launch_gj(const T* K, const T* rhs, T* out, int batch, int m, cudaStream_t stream) {
+cudaError_t launch_gj(const T* K, const T* rhs, T* out, int batch, int m, int tile,
+                      cudaStream_t stream) {
   if (batch <= 0) return cudaSuccess;
   if (m < 1) return cudaErrorInvalidValue;
-  const size_t w = kSolve ? m + 1 : 2 * static_cast<size_t>(m);
+  if (tile) {
+    constexpr int W = kSolve ? kGjSolveW : kGjInverseW;
+    constexpr int R = kSolve ? kGjSolveR : kGjInverseR;
+    constexpr int C = kSolve ? kGjSolveC : kGjInverseC;
+    if constexpr (sizeof(T) == sizeof(float)) {
+      if (m > W * R || m + (kSolve ? 1 : 0) > kWarp * C) return cudaErrorInvalidValue;
+      gj_tile_kernel<kSolve, W, R, C><<<batch, dim3(kWarp, W), 0, stream>>>(K, rhs, out, m);
+      return cudaGetLastError();
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  }
+  const dim3 block(kWarp, kGjSmemWarps);
+  const size_t w = kSolve ? m + 1 : static_cast<size_t>(m);
   const size_t smem = sizeof(T) * (m * w + m);
-  cudaError_t err = allow_smem(reinterpret_cast<const void*>(&gj_kernel<T, kSolve>), smem);
+  static bool raised[kMaxDevices] = {};
+  cudaError_t err =
+      allow_smem(reinterpret_cast<const void*>(&gj_smem_kernel<T, kSolve>), smem, raised);
   if (err != cudaSuccess) return err;
-  gj_kernel<T, kSolve><<<batch, dim3(kWarp, kGjRowsPerPass), smem, stream>>>(K, rhs, out, m);
+  gj_smem_kernel<T, kSolve><<<batch, block, smem, stream>>>(K, rhs, out, m);
   return cudaGetLastError();
 }
 
@@ -340,7 +604,9 @@ cudaError_t launch_admm(const T* Kinv, const T* A, const T* q, const T* l, const
   if (n < 1 || m < 1 || num < 0) return cudaErrorInvalidValue;
   const size_t smem = sizeof(T) * (static_cast<size_t>(n) * n + static_cast<size_t>(m) * n +
                                    4 * static_cast<size_t>(n) + 7 * static_cast<size_t>(m));
-  cudaError_t err = allow_smem(reinterpret_cast<const void*>(&admm_kernel<T>), smem);
+  static bool raised[kMaxDevices] = {};
+  cudaError_t err =
+      allow_smem(reinterpret_cast<const void*>(&admm_kernel<T>), smem, raised);
   if (err != cudaSuccess) return err;
   admm_kernel<T><<<batch, kAdmmWarps * kWarp, smem, stream>>>(
       Kinv, A, q, l, u, rho, x, z, y, xo, zo, yo, n, m, num, static_cast<T>(sigma),
@@ -359,12 +625,14 @@ cudaError_t launch_admm(const T* Kinv, const T* A, const T* q, const T* l, const
   extern "C" int lin_chol_inv_base_##SUFFIX(const T* K, T* W, int batch, int n, void* stream) { \
     return launch_chol_inv_base<T>(K, W, batch, n, static_cast<cudaStream_t>(stream));        \
   }                                                                                             \
-  extern "C" int lin_gj_inverse_##SUFFIX(const T* K, T* out, int batch, int m, void* stream) { \
-    return launch_gj<T, false>(K, nullptr, out, batch, m, static_cast<cudaStream_t>(stream));  \
+  extern "C" int lin_gj_inverse_##SUFFIX(const T* K, T* out, int batch, int m, int tile,       \
+                                         void* stream) {                                        \
+    return launch_gj<T, false>(K, nullptr, out, batch, m, tile,                                 \
+                               static_cast<cudaStream_t>(stream));                              \
   }                                                                                             \
   extern "C" int lin_gj_solve_##SUFFIX(const T* K, const T* b, T* x, int batch, int m,         \
-                                       void* stream) {                                          \
-    return launch_gj<T, true>(K, b, x, batch, m, static_cast<cudaStream_t>(stream));           \
+                                       int tile, void* stream) {                                \
+    return launch_gj<T, true>(K, b, x, batch, m, tile, static_cast<cudaStream_t>(stream));     \
   }                                                                                             \
   extern "C" int lin_admm_iterate_##SUFFIX(                                                     \
       const T* Kinv, const T* A, const T* q, const T* l, const T* u, const T* rho, const T* x, \

@@ -21,6 +21,14 @@ the other. ``<wrapper>.launches`` counts the kernel's launches.
 The CUDA source is compiled at first use with ``nvcc`` into a shared
 library with a plain C interface under ``g1_locomotion_tpu_torch/_build/``
 and loaded with ``ctypes``; a CPU call never reaches the loader.
+
+Shared memory per block (``MAX_SMEM_BYTES`` is what a Hopper block can use),
+in elements of the working type: B1 a fixed 8,448; B4 ``n^2 + m n + 4 n +
+7 m``; B2 and B3 none beyond two small static buffers when the system fits
+the float32 register tile (``GJ_TILE``: B2 m <= 128, B3 m <= 208), else the
+in-place array and the saved column, ``m w + m`` with ``w = m`` for B2 and
+``m + 1`` for B3 (m <= 240 at float32, m <= 169 at float64, for either).
+``gj_plan`` decides.
 """
 
 from __future__ import annotations
@@ -46,14 +54,17 @@ NVCC_FLAGS = (
 )
 MAX_SMEM_BYTES = 232448  # dynamic shared memory a block may use on Hopper
 BASE_MAX = 32            # largest block the Cholesky base kernel takes
+# (rows, columns) of the float32 register tiles of B2 and B3, as in the CUDA
+# source: kGj<Kind>W * kGj<Kind>R and 32 * kGj<Kind>C.
+GJ_TILE = {"gj_inverse": (128, 128), "gj_solve": (208, 224)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
     "lin_chol_inv_base": [_P, _P, _I, _I, _P],
-    "lin_gj_inverse": [_P, _P, _I, _I, _P],
-    "lin_gj_solve": [_P, _P, _P, _I, _I, _P],
+    "lin_gj_inverse": [_P, _P, _I, _I, _I, _P],
+    "lin_gj_solve": [_P, _P, _P, _I, _I, _I, _P],
     "lin_admm_iterate": [_P] * 12 + [_I, _I, _I, _I, _D, _D, _P],
 }
 
@@ -74,27 +85,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit")
 
 
-def library_path() -> Path:
-    """Where the built library lives; the name carries a hash of the source
-    and flags, so an edited source is rebuilt."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"liblin_kernels_{digest[:16]}.so"
+def library_path(source: Path = SOURCE) -> Path:
+    """Where the library built from `source` lives; the name carries a hash
+    of the source and flags, so an edited source is rebuilt."""
+    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{source.stem}_{digest[:16]}.so"
 
 
-def build(verbose: bool = False) -> Tuple[Path, float, str]:
-    """Compile ``csrc/lin_kernels.cu`` if its library is missing.
+def build(verbose: bool = False, source: Path = SOURCE) -> Tuple[Path, float, str]:
+    """Compile `source` (``csrc/lin_kernels.cu``) if its library is missing.
 
     Returns (library path, seconds spent compiling (0 if it was built),
     the compiler's output). With ``verbose`` the compiler reports each
     kernel's registers and shared memory (``-Xptxas -v``).
     """
-    out = library_path()
+    out = library_path(source)
     if out.exists():
         return out, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(SOURCE)]
+           "-o", str(tmp), str(source)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -150,13 +161,16 @@ def _check(name: str, tensors: Dict[str, torch.Tensor], shapes: Dict[str, tuple]
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
-def _check_smem(name: str, dtype: torch.dtype, elements: int) -> None:
+def _check_smem(name: str, dtype: torch.dtype, elements: int) -> int:
+    """Bytes of dynamic shared memory for `elements` values; raises above the
+    block's limit."""
     nbytes = elements * (4 if dtype == torch.float32 else 8)
     if nbytes > MAX_SMEM_BYTES:
         raise ValueError(
             f"{name}: needs {nbytes} B of shared memory per block, above the "
             f"{MAX_SMEM_BYTES} B a Hopper block can use"
         )
+    return nbytes
 
 
 def launch_counts() -> Dict[str, int]:
@@ -233,35 +247,57 @@ def chol_inverse_base(K: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _gj_eliminate(aug: torch.Tensor, m: int) -> torch.Tensor:
-    """Unpivoted Gauss-Jordan on the augmented (..., m, w) system, as the
-    reference's Pallas kernels do it: step j subtracts (a_ij / a_jj) row_j
-    from every row i != j. Returns the eliminated system."""
-    rows = torch.arange(m, device=aug.device)
+def gj_plan(name: str, m: int, dtype: torch.dtype) -> Tuple[bool, int]:
+    """Which kernel B2 (``gj_inverse``) or B3 (``gj_solve``) launches for an
+    m-wide system: (True, 0) for the float32 register-tile kernel when the
+    system, with b as one more column for B3, fits ``GJ_TILE`` (zero padding
+    to the tile happens in the kernel's registers); else (False, bytes of
+    dynamic shared memory) for the shared-memory kernel, which holds the
+    in-place (m, w) array and the saved column (m). Raises ValueError where
+    that exceeds ``MAX_SMEM_BYTES``."""
+    if m < 1:
+        raise ValueError(f"{name}: m = {m} < 1")
+    w = m + 1 if name == "gj_solve" else m
+    rows, cols = GJ_TILE[name]
+    if dtype == torch.float32 and m <= rows and w <= cols:
+        return True, 0
+    return False, _check_smem(name, dtype, m * w + m)
+
+
+def _gj_eliminate(a: torch.Tensor, solve: bool) -> torch.Tensor:
+    """Unpivoted in-place Gauss-Jordan on a copy of the (..., m, w) array, in
+    the kernels' order of operations. Step j saves column j as the factors
+    (entry j zeroed), for the inverse sets column j to e_j, multiplies row j by
+    1 / pivot, and subtracts factor * row j from every row. The solve
+    (w = m + 1) touches only columns > j; the inverse (w = m) all of them, and
+    ends with K^-1 in place of K."""
+    a = a.clone()
+    m = a.shape[-2]
     for j in range(m):
-        f = aug[..., :, j] / aug[..., j, j, None]
-        f = torch.where(rows == j, torch.zeros_like(f), f)
-        aug = aug - f[..., :, None] * aug[..., j, None, :]
-    return aug
+        piv = a[..., j, j].clone()
+        col = a[..., :, j].clone()
+        col[..., j] = 0
+        if not solve:
+            a[..., :, j] = 0
+            a[..., j, j] = 1
+        c0 = j + 1 if solve else 0
+        prow = a[..., j, c0:] * (1 / piv)[..., None]
+        a[..., j, c0:] = prow
+        a[..., :, c0:] -= col[..., :, None] * prow[..., None, :]
+    return a
 
 
 def gj_inverse_ref(K: torch.Tensor) -> torch.Tensor:
     """Plain version of B2: K^-1 for SPD + ridge K (..., m, m) by unpivoted
-    Gauss-Jordan elimination on [K | I]."""
-    m = K.shape[-1]
-    eye = torch.eye(m, dtype=K.dtype, device=K.device).expand(K.shape)
-    aug = _gj_eliminate(torch.cat([K, eye], dim=-1), m)
-    diag = torch.diagonal(aug[..., :m], dim1=-2, dim2=-1)
-    return aug[..., m:] / diag[..., None]
+    in-place Gauss-Jordan elimination (the reference eliminates [K | I] in the
+    same order of pivots)."""
+    return _gj_eliminate(K, solve=False)
 
 
 def gj_solve_ref(K: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain version of B3: x = K^-1 b for SPD + ridge K (..., m, m), b (..., m),
     by unpivoted Gauss-Jordan elimination on [K | b]."""
-    m = K.shape[-1]
-    aug = _gj_eliminate(torch.cat([K, b[..., None]], dim=-1), m)
-    diag = torch.diagonal(aug[..., :m], dim1=-2, dim2=-1)
-    return aug[..., m] / diag
+    return _gj_eliminate(torch.cat([K, b[..., None]], dim=-1), solve=True)[..., -1]
 
 
 def gj_inverse(K: torch.Tensor) -> torch.Tensor:
@@ -272,9 +308,9 @@ def gj_inverse(K: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gj_inverse: K must be (B, m, m), got {tuple(K.shape)}")
     B, m, _ = K.shape
     _check("gj_inverse", {"K": K}, {"K": (B, m, m)})
-    _check_smem("gj_inverse", K.dtype, m * 2 * m + m)
+    tile, _ = gj_plan("gj_inverse", m, K.dtype)
     out = torch.empty_like(K)
-    _launch("lin_gj_inverse", K.dtype, _ptr(K), _ptr(out), B, m, _stream(K))
+    _launch("lin_gj_inverse", K.dtype, _ptr(K), _ptr(out), B, m, int(tile), _stream(K))
     _count("gj_inverse")
     return out
 
@@ -287,9 +323,9 @@ def gj_solve(K: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gj_solve: K must be (B, m, m), got {tuple(K.shape)}")
     B, m, _ = K.shape
     _check("gj_solve", {"K": K, "b": b}, {"K": (B, m, m), "b": (B, m)})
-    _check_smem("gj_solve", K.dtype, m * (m + 1) + m)
+    tile, _ = gj_plan("gj_solve", m, K.dtype)
     x = torch.empty_like(b)
-    _launch("lin_gj_solve", K.dtype, _ptr(K), _ptr(b), _ptr(x), B, m, _stream(K))
+    _launch("lin_gj_solve", K.dtype, _ptr(K), _ptr(b), _ptr(x), B, m, int(tile), _stream(K))
     _count("gj_solve")
     return x
 

@@ -70,23 +70,36 @@ def test_chol_inverse_base(cuda, dtype, n):
                                atol=TOL[dtype])
 
 
+# float32 up to m = 128 (B2) / 208 (B3) runs the register-tile kernel, all
+# else the shared-memory kernel; B = 300 is more blocks than the card has SMs.
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("m", [21, 120])
-def test_gj_inverse(cuda, dtype, m):
-    K = torch.tensor(_random_spd(m, 3, m, cond=1e2), dtype=dtype, device=cuda)
+@pytest.mark.parametrize("dtype, m, b", [
+    (torch.float32, 1, 3), (torch.float32, 21, 3), (torch.float32, 120, 3),
+    (torch.float32, 128, 3), (torch.float32, 150, 3), (torch.float32, 120, 300),
+    (torch.float64, 1, 3), (torch.float64, 21, 3), (torch.float64, 120, 3),
+    (torch.float64, 169, 2),
+])
+def test_gj_inverse(cuda, dtype, m, b):
+    K = torch.tensor(_random_spd(m, b, m, cond=1e2), dtype=dtype, device=cuda)
     Ki = _counted("gj_inverse", lambda: cuda_lin.gj_inverse(K))
     torch.testing.assert_close(Ki, cuda_lin.gj_inverse_ref(K), rtol=TOL[dtype], atol=TOL[dtype])
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("m", [37, 160])
-def test_gj_solve(cuda, dtype, m):
-    K = torch.tensor(_random_spd(m, 3, m, cond=1e2), dtype=dtype, device=cuda)
-    b = torch.tensor(np.random.default_rng(m).standard_normal((3, m)), dtype=dtype, device=cuda)
-    x = _counted("gj_solve", lambda: cuda_lin.gj_solve(K, b))
-    torch.testing.assert_close(x, cuda_lin.gj_solve_ref(K, b), rtol=TOL[dtype], atol=TOL[dtype])
+@pytest.mark.parametrize("dtype, m, b", [
+    (torch.float32, 1, 3), (torch.float32, 37, 3), (torch.float32, 160, 3),
+    (torch.float32, 200, 3), (torch.float32, 208, 3), (torch.float32, 230, 3),
+    (torch.float32, 200, 300),
+    (torch.float64, 1, 3), (torch.float64, 37, 3), (torch.float64, 160, 3),
+    (torch.float64, 169, 2),
+])
+def test_gj_solve(cuda, dtype, m, b):
+    K = torch.tensor(_random_spd(m, b, m, cond=1e2), dtype=dtype, device=cuda)
+    rhs = torch.tensor(np.random.default_rng(m).standard_normal((b, m)), dtype=dtype,
+                       device=cuda)
+    x = _counted("gj_solve", lambda: cuda_lin.gj_solve(K, rhs))
+    torch.testing.assert_close(x, cuda_lin.gj_solve_ref(K, rhs), rtol=TOL[dtype],
+                               atol=TOL[dtype])
 
 
 @pytest.mark.gpu
@@ -127,6 +140,9 @@ def test_wrappers_refuse_bad_input(cuda):
         cuda_lin.gj_inverse(K.contiguous().half())  # dtype
     with pytest.raises(ValueError):
         cuda_lin.gj_inverse(torch.eye(200, dtype=torch.float64, device=cuda)[None])  # smem
+    with pytest.raises(ValueError):
+        cuda_lin.gj_solve(torch.eye(170, dtype=torch.float64, device=cuda)[None],
+                          torch.ones((1, 170), dtype=torch.float64, device=cuda))  # smem
     with pytest.raises(ValueError):
         cuda_lin.gj_solve(K.contiguous(), torch.ones((2, 40)))  # b on the CPU
 

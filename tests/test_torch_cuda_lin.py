@@ -8,12 +8,17 @@ Pallas gj/admm kernels are single-instance, so the JAX side loops over the
 batch. Everything compares at float64, where both sides carry out the same
 elimination / factorization steps in a different association order
 (the Pallas B1 multiplies by 1/d where the plain version divides by d, and
-pads rows with identity), so they agree to rounding amplified by the
-conditioning (cond <= 1e3 here): rtol 1e-9, atol 1e-11.
+pads rows with identity; the plain B2 / B3 eliminate in place, scale the
+pivot row by 1/pivot where the Pallas kernels divide the factors by the
+pivot, and B3 leaves the columns left of the pivot alone), so they agree to
+rounding amplified by the conditioning (cond <= 1e3 here): rtol 1e-9,
+atol 1e-11.
 
 The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_cuda_kernels.py and chip_smoke.py.
 """
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -73,16 +78,16 @@ def cases():
     for n, b in ((4, 5), (16, 5), (30, 5), (8, 3)):
         K = _random_spd(rng, b, n)
         out[f"b1_{n}"] = (K, np.asarray(pallas_lin.chol_inverse_base(jnp.asarray(K), interpret=True)))
-    for m, b in ((37, 1), (37, 3)):
+    for m, b, key in ((37, 1, "b3_1"), (37, 3, "b3_3"), (1, 2, "b3_m1"), (2, 2, "b3_m2")):
         K, rhs = _spd_ridge(rng, b, m), rng.standard_normal((b, m))
         x = np.stack([np.asarray(pallas_lin.gj_solve(jnp.asarray(K[i]), jnp.asarray(rhs[i]),
                                                      interpret=True)) for i in range(b)])
-        out[f"b3_{b}"] = (K, rhs, x)
-    for m, b in ((21, 1), (21, 3)):
+        out[key] = (K, rhs, x)
+    for m, b, key in ((21, 1, "b2_1"), (21, 3, "b2_3"), (1, 2, "b2_m1"), (2, 2, "b2_m2")):
         K = _spd_ridge(rng, b, m)
         Ki = np.stack([np.asarray(pallas_lin.gj_inverse(jnp.asarray(K[i]), interpret=True))
                        for i in range(b)])
-        out[f"b2_{b}"] = (K, Ki)
+        out[key] = (K, Ki)
     for b in (1, 3):
         case = _admm_case(rng, b, 13, 21)
         res = [_jax_admm(case, i) for i in range(b)]
@@ -120,6 +125,64 @@ def test_gj_inverse_matches_pallas(cases, b):
     Ki = cuda_lin.gj_inverse(torch.tensor(K))
     _close(Ki, Ki_jax)
     np.testing.assert_allclose(Ki.numpy(), np.linalg.inv(K), rtol=1e-7, atol=1e-9)
+
+
+@pytest.mark.parametrize("m", [1, 2])
+def test_gj_smallest_systems_match_pallas(cases, m):
+    """m = 1 (one pivot, nothing to eliminate) and m = 2 (one elimination)."""
+    K, rhs, x_jax = cases[f"b3_m{m}"]
+    _close(cuda_lin.gj_solve(torch.tensor(K), torch.tensor(rhs)), x_jax)
+    K, Ki_jax = cases[f"b2_m{m}"]
+    _close(cuda_lin.gj_inverse(torch.tensor(K)), Ki_jax)
+
+
+def test_gj_plain_versions_leave_their_inputs(cases):
+    """The plain versions eliminate in place on a copy."""
+    K, rhs, _ = cases["b3_3"]
+    Kt, bt = torch.tensor(K), torch.tensor(rhs)
+    cuda_lin.gj_solve_ref(Kt, bt)
+    cuda_lin.gj_inverse_ref(Kt)
+    assert np.array_equal(Kt.numpy(), K) and np.array_equal(bt.numpy(), rhs)
+
+
+@pytest.mark.parametrize("name, dtype, m, expected", [
+    # float32 within the register tile: zero padding in registers, no dynamic smem
+    ("gj_inverse", torch.float32, 1, (True, 0)),
+    ("gj_inverse", torch.float32, 120, (True, 0)),
+    ("gj_inverse", torch.float32, 128, (True, 0)),
+    ("gj_solve", torch.float32, 200, (True, 0)),
+    ("gj_solve", torch.float32, 208, (True, 0)),
+    # beyond the tile, and every float64 system: the in-place array (m, w) and
+    # a column (m) in shared memory
+    ("gj_inverse", torch.float32, 129, (False, 4 * (129 * 129 + 129))),
+    ("gj_solve", torch.float32, 209, (False, 4 * (209 * 210 + 209))),
+    ("gj_inverse", torch.float64, 120, (False, 8 * (120 * 120 + 120))),
+    ("gj_solve", torch.float64, 169, (False, 8 * (169 * 170 + 169))),
+])
+def test_gj_plan_picks_tile_or_shared_memory(name, dtype, m, expected):
+    assert cuda_lin.gj_plan(name, m, dtype) == expected
+
+
+@pytest.mark.parametrize("name, dtype, m", [
+    ("gj_inverse", torch.float32, 241), ("gj_solve", torch.float32, 241),
+    ("gj_inverse", torch.float64, 170), ("gj_solve", torch.float64, 170),
+    ("gj_solve", torch.float32, 0),
+])
+def test_gj_plan_refuses_what_no_kernel_takes(name, dtype, m):
+    with pytest.raises(ValueError):
+        cuda_lin.gj_plan(name, m, dtype)
+
+
+def test_gj_tile_sizes_match_the_cuda_source():
+    """GJ_TILE repeats the tile constants of csrc/lin_kernels.cu: rows are
+    warps * rows per thread, columns 32 * chunks per thread."""
+    src = cuda_lin.SOURCE.read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int kGj(\w+) = (\d+);", src)}
+    for name, kind in (("gj_inverse", "Inverse"), ("gj_solve", "Solve")):
+        assert cuda_lin.GJ_TILE[name] == (const[kind + "W"] * const[kind + "R"],
+                                          32 * const[kind + "C"])
+        assert 32 % const[kind + "W"] == 0 and const[kind + "W"] % const["Bufs"] == 0
+    assert int(re.search(r"kMaxSmem = (\d+);", src).group(1)) == cuda_lin.MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize("b", [1, 3])
