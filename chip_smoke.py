@@ -10,11 +10,13 @@ N = 10, 120 decision variables, 200 constraint rows, float32, random
 initial states from a seeded generator. Phases, each of which must pass:
 
 0. build the four CUDA kernels from ``g1_locomotion_tpu_torch/csrc`` (and,
-   beside them, the barrier probe that measures the one-SM bound's chain);
-   the register-tile Gauss-Jordan kernels must not spill;
+   beside them, the barrier probe that measures the chains of dependent
+   steps); the kernels that keep their matrices in registers (B1, the tiles
+   of B2, B3 and B4) must not spill;
 1. each kernel against its plain PyTorch version on the card, on inputs
-   recorded from the main path itself (so at the shapes it gives them), and
-   B2 / B3 also on random SPD systems at the main path's widths;
+   recorded from the main path itself (so at the shapes, and for B1 the
+   strided views, it gives them), and B1-B3 also on random SPD systems at
+   the main path's widths;
 2. throughput: one ``MPCSolver`` call at B = 4096 in the ``bench.py``
    configuration (matmul inverses, kernel B1); physical invariants; the
    first 256 instances against the plain-version path on the card;
@@ -24,15 +26,21 @@ initial states from a seeded generator. Phases, each of which must pass:
    kernel, its plain version and, where one PyTorch call computes the same
    function, that call, in turns; beside them the card bound (bytes over the
    memory rate, operations over the fp32 rate) and, for the kernels that the
-   serving path launches as one block, the one-SM bound.
+   serving path launches as one block, the one-SM bound. B1 at both block
+   sizes, dense and on the path's strided views; B4's fixed part and its
+   slope per iteration. Kernel times are device times: the launches queue up
+   behind a kernel that keeps the card busy meanwhile, so a wrapper that
+   takes the host longer than its kernel runs does not show.
 
 Launch counters are zeroed right before each path (phase 2, phase 3) and
 read right after it; every kernel must have launched as often as that path
 calls it. The line before the last is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero, and so does a machine without a CUDA device.
-``--profile`` adds a ``torch.profiler`` pass over 50 serving solves (device
-busy share, device time by kernel); it is a measurement, not a check.
+``--profile`` adds ``torch.profiler`` passes over 50 serving solves, over
+3 throughput batches and over the SPD inverse alone (device busy share,
+device time by kernel and by kind, with the share of ``cat`` and copy
+kernels); they are measurements, not checks.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -56,6 +65,7 @@ DU0_MAX_N = 0.5     # |u0 kernel path - u0 plain path| bound [N]
 THROUGHPUT_BATCHES = 10  # timed B = 4096 batches
 SERVING_SAMPLES = 1000   # timed B = 1 solves: 10 samples beyond the p99
 PROFILE_SOLVES = 50      # serving solves under torch.profiler (--profile)
+PROFILE_BATCHES = 3      # throughput batches under torch.profiler (--profile)
 SOURCE = "g1_locomotion_tpu_torch/csrc/lin_kernels.cu"
 # Launches each path must make: B1 four per 120-wide inverse (x 2 segments),
 # four for Hr, eight per 200-wide S (x 2 polish rounds); per serving solve B2
@@ -69,8 +79,13 @@ SERVING_LAUNCHES = {"chol_inverse_base": 0, "gj_inverse": 3 * SERVING_CHAIN,
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 SM_COUNT = 132
-GJ_WARPS = 16   # warps per block of B2 / B3 (csrc/lin_kernels.cu)
-ADMM_WARPS = 8  # of B4
+GJ_WARPS = 16    # warps per block of B2 / B3 (csrc/lin_kernels.cu)
+ADMM_WARPS = 16  # of B4
+# The kernels that hold their matrices in registers: a spill there is a fault.
+REGISTER_KERNELS = ("gj_tile_kernel", "chol_inv_base_kernel", "admm_tile_kernel")
+# Clocks the card is kept busy while the launches to be timed queue up
+# behind (a few ms), so that the events see device time only.
+BUSY_CYCLES = 8_000_000
 REPLACES = {
     "chol_inverse_base": "g1_locomotion_tpu/ops/pallas_lin.py:118",
     "gj_inverse": "g1_locomotion_tpu/ops/pallas_lin.py:271",
@@ -163,19 +178,36 @@ def plain_kernels():
 def recording_kernels(calls, per_shape: int = 3):
     """Record each kernel's inputs on the main path: the first `per_shape`
     calls of each input shape (for B2 on the serving path: the K of both
-    ADMM segments and the polish Hr), as calls[name] = [(shapes, args)]."""
+    ADMM segments and the polish Hr) and, beyond them, the first call with
+    each further layout (for B1: every strided view the recursion hands
+    it), as calls[name] = [(shapes, args, strides)]. The
+    arguments are kept as dense copies; `strides` are those of the tensors
+    among the arguments and then of ``out``, as the path gave them."""
 
     def make(name, fn):
-        def wrapper(*args):
+        def wrapper(*args, **kwargs):
+            tensors = [a for a in (*args, *kwargs.values()) if isinstance(a, torch.Tensor)]
             key = tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor))
+            strides = tuple(a.stride() for a in tensors)
             seen = calls.setdefault(name, [])
-            if sum(k == key for k, _ in seen) < per_shape:
-                seen.append((key, [a.clone() if isinstance(a, torch.Tensor) else a
-                                   for a in args]))
-            return fn(*args)
+            if (sum(k == key for k, _, _ in seen) < per_shape
+                    or not any(k == key and st == strides for k, _, st in seen)):
+                seen.append((key, [a.contiguous().clone() if isinstance(a, torch.Tensor) else a
+                                   for a in args], strides))
+            return fn(*args, **kwargs)
         return wrapper
 
     return replaced_kernels(make)
+
+
+def strided_copy(t: torch.Tensor, stride, fill: float = 7.0):
+    """(buffer, view): a view with strides `stride` that equals `t`, inside a
+    fresh flat buffer that holds `fill` everywhere else."""
+    size = 1 + sum((n - 1) * st for n, st in zip(t.shape, stride))
+    buf = torch.full((size,), fill, dtype=t.dtype, device=t.device)
+    view = buf.as_strided(tuple(t.shape), stride)
+    view.copy_(t)
+    return buf, view
 
 
 def check_invariants(sol, contact, label: str) -> None:
@@ -204,12 +236,17 @@ def check_invariants(sol, contact, label: str) -> None:
           f"dua_res max {float(sol.dua_res.max()):.3e}")
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of fn() in ms, CUDA events around `reps` calls."""
+def cuda_ms(fn, reps: int, warmup: int = 2, queue_ahead: bool = False) -> float:
+    """Mean device time of fn() in ms, CUDA events around `reps` calls. With
+    `queue_ahead` the card is first kept busy for a few ms, so that the calls
+    queue up behind and run back to back whatever the host takes to make
+    them (for calls of a few us that enqueue without waiting for the card)."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if queue_ahead:
+        torch.cuda._sleep(BUSY_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -262,10 +299,13 @@ def work(name: str, args) -> dict:
     b, m, n = args[1].shape
     num = args[9]
     # Per iteration K^-1 rhs, A' w and A x~ (2 n^2 + 4 m n) and ~10 (n + m) of
-    # vector updates; four dependent block-wide stages (w, rhs, x~, z~).
+    # vector updates. The chain is what the function demands, whatever the
+    # kernel: three products per iteration, each of which needs the one
+    # before it whole (A' w -> K^-1 rhs -> A x~ -> next w), so three
+    # exchanges across the block.
     return {"bytes": b * (n * n + m * n + 3 * n + 7 * m) * size,
             "flops": b * num * (2 * n * n + 4 * m * n + 10 * (n + m)),
-            "steps": 4 * num, "warps": ADMM_WARPS}
+            "steps": 3 * num, "warps": ADMM_WARPS}
 
 
 def library_call(name: str, args):
@@ -282,18 +322,23 @@ def library_call(name: str, args):
 def barrier_chain_us(lib_path, warps: int, device) -> float:
     """Microseconds per step of the barrier probe's chain (one warp's store
     to shared memory, one block barrier, all warps' load) in one block of
-    `warps` warps: the slope between two chain lengths."""
+    `warps` warps: the slope between two chain lengths. With `warps` = 0 the
+    chain inside one warp (one lane's store, __syncwarp(), all lanes' load)."""
     lib = ctypes.CDLL(str(lib_path))
     lib.probe_barrier_chain.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                         ctypes.c_void_p]
-    lib.probe_barrier_chain.restype = ctypes.c_int
-    out = torch.empty(warps * 32, dtype=torch.float32, device=device)
+    lib.probe_warp_chain.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.probe_barrier_chain.restype = lib.probe_warp_chain.restype = ctypes.c_int
+    out = torch.empty(max(warps, 1) * 32, dtype=torch.float32, device=device)
     stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
     def launch(steps):
-        err = lib.probe_barrier_chain(out.data_ptr(), steps, warps, stream)
+        if warps:
+            err = lib.probe_barrier_chain(out.data_ptr(), steps, warps, stream)
+        else:
+            err = lib.probe_warp_chain(out.data_ptr(), steps, stream)
         if err != 0:
-            raise RuntimeError(f"probe_barrier_chain: CUDA error {err} at launch")
+            raise RuntimeError(f"barrier probe: CUDA error {err} at launch")
 
     short, long = 1000, 5000
     return (cuda_ms(lambda: launch(long), reps=20)
@@ -301,10 +346,19 @@ def barrier_chain_us(lib_path, warps: int, device) -> float:
 
 
 def cases_b1(calls):
-    """B1's main-path inputs, one per block size, widest first."""
-    widths = sorted({key[0] for key, _ in calls["chol_inverse_base"]}, key=lambda s: -s[-1])
-    return [next(args for key, args in calls["chol_inverse_base"] if key[0] == w)
-            for w in widths]
+    """B1's main-path inputs, widest block first: per block size the first
+    input with each layout the path gave it, then the same input dense, as
+    (K dense, (K strides, out strides) or None for dense)."""
+    recorded = calls["chol_inverse_base"]
+    cases = []
+    for shape in sorted({key[0] for key, _, _ in recorded}, key=lambda s: -s[-1]):
+        layouts = {}
+        for key, args, strides in recorded:
+            if key[0] == shape:
+                layouts.setdefault(strides, args[0])
+        cases += [(K, strides) for strides, K in layouts.items()]
+        cases.append((next(iter(layouts.values())), None))
+    return cases
 
 
 def kernel_id(device_kernel_name: str) -> str:
@@ -312,56 +366,72 @@ def kernel_id(device_kernel_name: str) -> str:
     for mark, key in (("gj_tile_kernel<true", "B3"), ("gj_tile_kernelILb1", "B3"),
                       ("gj_tile_kernel<false", "B2"), ("gj_tile_kernelILb0", "B2"),
                       ("gj_smem_kernel", "B2/B3 shared-memory kernel"),
-                      ("admm_kernel", "B4"), ("chol_inv_base_kernel", "B1")):
+                      ("admm_tile_kernel", "B4"), ("admm_smem_kernel", "B4 shared-memory kernel"),
+                      ("chol_inv_base_kernel", "B1")):
         if mark in device_kernel_name:
             return key
     return "other ops"
 
 
-def profile_serving(solve_once, gpu: str) -> None:
-    """torch.profiler over PROFILE_SOLVES serving solves: the device-busy share
-    of the wall time (union of the device kernels' intervals) and the device
-    time by kernel."""
+def op_kind(device_kernel_name: str) -> str:
+    """A coarse kind for a device kernel's name: the port's own kernels by
+    id, cuBLAS products, `torch.cat`, copies, fills, everything else."""
+    kind = kernel_id(device_kernel_name)
+    if kind != "other ops":
+        return kind
+    low = device_kernel_name.lower()
+    for kind, marks in (("cuBLAS", ("gemm", "gemv", "cutlass", "cublas")),
+                        ("cat", ("catarray",)), ("copy", ("copy", "memcpy")),
+                        ("fill", ("memset", "fill"))):
+        if any(mark in low for mark in marks):
+            return kind
+    return "other elementwise / reduction"
+
+
+def profile_path(label: str, once, reps: int, unit: str, gpu: str, by=kernel_id) -> None:
+    """torch.profiler over `reps` calls of once(): the device-busy share of the
+    wall time (union of the device kernels' intervals) and the device time by
+    by(kernel name)."""
     from torch.profiler import ProfilerActivity, profile
 
-    solve_once()
+    once()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(PROFILE_SOLVES):
-        solve_once()
+    for _ in range(reps):
+        once()
     torch.cuda.synchronize()
-    plain_wall = (time.perf_counter() - t0) / PROFILE_SOLVES * 1e3
+    plain_wall = (time.perf_counter() - t0) / reps * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(PROFILE_SOLVES):
-            solve_once()
+        for _ in range(reps):
+            once()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / PROFILE_SOLVES * 1e3
+        wall = (time.perf_counter() - t0) / reps * 1e3
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
-        print(f"[{gpu}] serving profile: the profiler recorded no device events; not measured")
+        print(f"[{gpu}] {label} profile: the profiler recorded no device events; not measured")
         return
     busy, edge, by_name = 0.0, spans[0][0], {}
     for start, end, name in spans:
         busy += max(0.0, end - max(start, edge))
         edge = max(edge, end)
         by_name[name] = by_name.get(name, 0.0) + (end - start)
-    busy_ms = busy / 1e3 / PROFILE_SOLVES
-    print(f"[{gpu}] serving profile over {PROFILE_SOLVES} solves: wall {plain_wall:.3f} ms per "
-          f"solve unprofiled, {wall:.3f} ms profiled; {len(spans) / PROFILE_SOLVES:.0f} device "
-          f"kernels per solve; device busy {busy_ms:.3f} ms per solve = "
+    busy_ms = busy / 1e3 / reps
+    print(f"[{gpu}] {label} profile over {reps} x {unit}: wall {plain_wall:.3f} ms per "
+          f"{unit} unprofiled, {wall:.3f} ms profiled; {len(spans) / reps:.0f} device "
+          f"kernels per {unit}; device busy {busy_ms:.3f} ms per {unit} = "
           f"{100 * busy_ms / plain_wall:.1f}% of the unprofiled wall, "
           f"{100 * busy_ms / wall:.1f}% of the profiled")
     mine = {}
     for name, us in by_name.items():
-        key = kernel_id(name)
-        mine[key] = mine.get(key, 0.0) + us / 1e3 / PROFILE_SOLVES
-    print(f"[{gpu}] serving profile, device ms per solve by kernel: "
-          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(mine.items())))
+        mine[by(name)] = mine.get(by(name), 0.0) + us / 1e3 / reps
+    total = sum(mine.values())
+    print(f"[{gpu}] {label} profile, device ms per {unit}: "
+          + ", ".join(f"{k} {v:.4f} ({100 * v / total:.1f}%)" for k, v in sorted(mine.items())))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     for name, us in top:
-        print(f"  {us / 1e3 / PROFILE_SOLVES:.4f} ms per solve  {name[:110]}")
+        print(f"  {us / 1e3 / reps:.4f} ms per {unit}  {name[:110]}")
 
 
 def compare_kernels(calls, gen_device) -> dict:
@@ -407,22 +477,39 @@ def compare_kernels(calls, gen_device) -> dict:
             raise AssertionError(f"{label}: kernel disagrees with its plain version")
 
     # Every kernel on the inputs the main path gave it.
-    for key, args in calls["chol_inverse_base"]:
+    # B1 reads the block where the recursion's view of K has it and writes W
+    # into the view of the parent's W (the recorded strides), and dense too.
+    # Around the views the buffers hold a fill value, which must survive.
+    for key, args, (k_stride, w_stride) in calls["chol_inverse_base"]:
         K = args[0]
-        W, W_ref = cuda_lin.chol_inverse_base(K), cuda_lin.chol_inverse_base_ref(K)
+        W_ref = cuda_lin.chol_inverse_base_ref(K)
+        res_ref = eye_residual(K, W_ref.mT @ W_ref)
+        k_buf, k_view = strided_copy(K, k_stride)
+        w_buf, w_view = strided_copy(torch.full_like(K, float("nan")), w_stride)
+        cuda_lin.chol_inverse_base(k_view, out=w_view)
+        W_dense = cuda_lin.chol_inverse_base(K)
         torch.cuda.synchronize()
-        err = rel_err(W, W_ref)
-        res, res_ref = eye_residual(K, W.mT @ W), eye_residual(K, W_ref.mT @ W_ref)
-        note("chol_inverse_base", float((W - W_ref).abs().max()))
-        print(f"B1 main-path blocks {key[0]}: rel err {err:.3e}; max|W'WK - I| kernel "
-              f"{res:.3e}, plain {res_ref:.3e} (kernel <= 4 plain + 1e-4)")
-        if not res <= 4 * res_ref + 1e-4:
-            raise AssertionError("B1 inverse residual worse than its plain version's")
+        inside = torch.zeros(w_buf.shape, dtype=torch.bool, device=w_buf.device)
+        inside.as_strided(tuple(K.shape), w_stride).fill_(True)
+        if not (torch.all(w_buf[~inside] == 7.0) and torch.equal(k_view, K)):
+            raise AssertionError(f"B1 wrote outside its block of W, or into K "
+                                 f"(strides {k_stride}, {w_stride})")
+        if not torch.all(torch.triu(w_view, 1) == 0):
+            raise AssertionError("B1 left non-zeros above the diagonal of W")
+        for label, W in (("strided", w_view), ("dense", W_dense)):
+            res = eye_residual(K, W.mT @ W)
+            note("chol_inverse_base", float((W - W_ref).abs().max()))
+            print(f"B1 main-path blocks {key[0]}, K strides {k_stride}, W strides {w_stride}, "
+                  f"{label}: rel err {rel_err(W, W_ref):.3e}; max|W'WK - I| kernel {res:.3e}, "
+                  f"plain {res_ref:.3e} (kernel <= 4 plain + 1e-4)")
+            if not res <= 4 * res_ref + 1e-4:
+                raise AssertionError("B1 inverse residual worse than its plain version's")
+        del k_buf, w_buf, inside
 
     # B2 on the ADMM K (120) and the polish Hr (120) of real MPC instances:
     # ill-conditioned (rho up to 1e3 on equality rows), so the check is the
     # inverse residual against the plain version's.
-    for key, args in calls["gj_inverse"]:
+    for key, args, _ in calls["gj_inverse"]:
         K = args[0]
         X, X_ref = cuda_lin.gj_inverse(K), cuda_lin.gj_inverse_ref(K)
         torch.cuda.synchronize()
@@ -435,7 +522,7 @@ def compare_kernels(calls, gen_device) -> dict:
 
     # B3 on the polish Schur complement S (200): ill-conditioned, so the check
     # is the residual |S x - b| relative to |b|.
-    for key, args in calls["gj_solve"]:
+    for key, args, _ in calls["gj_solve"]:
         S, b = args
         x, x_ref = cuda_lin.gj_solve(S, b), cuda_lin.gj_solve_ref(S, b)
         torch.cuda.synchronize()
@@ -452,7 +539,7 @@ def compare_kernels(calls, gen_device) -> dict:
 
     # B4 against the plain loop: 2e-4 relative to the output scale
     # (tests/test_pallas_lin.py's tolerance between the two loops).
-    for key, args in calls["admm_iterate"]:
+    for key, args, _ in calls["admm_iterate"]:
         out = cuda_lin.admm_iterate(*args)
         ref = cuda_lin.admm_iterate_ref(*args)
         torch.cuda.synchronize()
@@ -489,15 +576,26 @@ def main(argv) -> None:
     cuda_lin._lib()
     print(f"phase 0 build: {seconds:.1f} s -> {path.name}; {probe_seconds:.1f} s -> "
           f"{probe_path.name}")
-    entry = ""
+    entry, base_regs = "", {}
     for line in log.splitlines():
         if "Compiling entry" in line:
             entry = line
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
+        if ("spill" in line and any(k in entry for k in REGISTER_KERNELS)
+                and not line.strip().startswith(
+                    "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")):
+            raise AssertionError(f"a kernel that keeps its matrix in registers spills: "
+                                 f"{entry.strip()} {line.strip()}")
+        # B1 has one kernel per type and block size: one line for each type.
+        base = re.search(r"chol_inv_base_kernelI([fd])Li(\d+)E", entry)
+        regs = re.search(r"Used (\d+) registers", line)
+        if base and regs:
+            base_regs.setdefault(base.group(1), {})[int(base.group(2))] = int(regs.group(1))
+        elif not base and ("registers" in line or "Compiling entry" in line or "spill" in line):
             print(f"  ptxas: {line.strip()}")
-        if ("spill" in line and "gj_tile_kernel" in entry and not line.strip().startswith(
-                "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")):
-            raise AssertionError(f"a register-tile Gauss-Jordan kernel spills: {line.strip()}")
+    for kind, regs in sorted(base_regs.items()):
+        print(f"  ptxas: chol_inv_base_kernel<{'float' if kind == 'f' else 'double'}, n> for n = "
+              f"{min(regs)}..{max(regs)}: no spill; registers at n = 25 / 30 / 32: "
+              f"{regs.get(25)} / {regs.get(30)} / {regs.get(32)}")
 
     thr_cfg, srv_cfg = configs()
     thr, srv = solver_for(thr_cfg, device, dtype), solver_for(srv_cfg, device, dtype)
@@ -579,34 +677,58 @@ def main(argv) -> None:
           f"p99 {float(lat_t.quantile(0.99)):.3f} ms over {len(lat)} sequential solves "
           f"(host clock, synchronized)")
 
+    # A batch of SPD matrices of the throughput K's size, for the recursion alone.
+    gen = torch.Generator().manual_seed(2)
+    M = torch.randn((B_THROUGHPUT, 120, 120), generator=gen).to(device)
+    Kb = M @ M.mT + 120 * torch.eye(120, device=device)
+    del M
+
     if argv == ["--profile"]:
-        profile_serving(lambda: srv(x, one["x_ref"], one["contact"], one["c_hor"], one["p_hor"]),
-                        gpu)
+        from g1_locomotion_tpu_torch.ops import lin
+
+        profile_path("serving", lambda: srv(x, one["x_ref"], one["contact"], one["c_hor"],
+                                            one["p_hor"]), PROFILE_SOLVES, "solve", gpu)
+        profile_path("throughput", lambda: run(thr, inp), PROFILE_BATCHES, "batch", gpu,
+                     by=op_kind)
+        profile_path("lin.chol_inverse (4096, 120, 120)", lambda: lin.chol_inverse(Kb), 5,
+                     "call", gpu, by=op_kind)
 
     # Each kernel beside its plain version, its library call and its bounds.
-    # B1 at each block size of the throughput path, widest first; B2-B4 on
-    # one serving instance. The kernel and the library call are timed in
-    # turns, ROUNDS times REPS launches each, and the medians kept.
+    # B1 at each block size of the throughput path, widest first, on each
+    # strided layout the recursion gave it and dense; B2-B4 on one serving
+    # instance. The kernel and the library call are timed in turns, ROUNDS
+    # times REPS launches each, and the medians kept.
     ROUNDS, REPS = 5, 20
-    chain_us = {w: barrier_chain_us(probe_path, w, device) for w in (GJ_WARPS, ADMM_WARPS)}
+    chain_us = {w: barrier_chain_us(probe_path, w, device) for w in sorted({GJ_WARPS, ADMM_WARPS, 0}, reverse=True)}
     for w, us in chain_us.items():
-        print(f"[{gpu}] barrier chain, one block of {w} warps: {us:.4f} us per step "
-              f"(store to shared memory, block barrier, load)")
+        print(f"[{gpu}] barrier chain, " + (f"one block of {w} warps" if w else "one warp")
+              + f": {us:.4f} us per step (store to shared memory, "
+              + ("block barrier" if w else "__syncwarp()") + ", load)")
     rows = {}  # {name: the kernels-line numbers at the first (widest) shape}
     for name in REPLACES:
         kernel, plain = getattr(cuda_lin, name), cuda_lin.PLAIN[name]
         if name == "chol_inverse_base":
-            cases = cases_b1(calls)
+            cases = []
+            for K, strides in cases_b1(calls):
+                if strides is None:
+                    k_view, w_view = K, torch.empty_like(K)
+                    label = f"{tuple(K.shape)} dense"
+                else:
+                    (_, k_view), (_, w_view) = (strided_copy(K, strides[0]),
+                                                strided_copy(K, strides[1]))
+                    label = f"{tuple(K.shape)} K strides {strides[0]}, W strides {strides[1]}"
+                cases.append((label, [K], lambda k=k_view, w=w_view: kernel(k, out=w)))
         else:
-            cases = [[a[:1].contiguous() if isinstance(a, torch.Tensor) else a
-                      for a in calls[name][0][1]]]
-        for args in cases:
+            args = [a[:1].contiguous() if isinstance(a, torch.Tensor) else a
+                    for a in calls[name][0][1]]
+            cases = [(str(tuple(args[0].shape)), args, lambda args=args: kernel(*args))]
+        for label, args, launch in cases:
             lib = library_call(name, args)
             k_all, l_all = [], []
             for _ in range(ROUNDS):
-                k_all.append(cuda_ms(lambda: kernel(*args), reps=REPS))
+                k_all.append(cuda_ms(launch, reps=REPS, queue_ahead=True))
                 if lib:
-                    l_all.append(cuda_ms(lib[1], reps=REPS))
+                    l_all.append(cuda_ms(lib[1], reps=REPS, queue_ahead=True))
             k_ms, l_ms = median(k_all), (median(l_all) if lib else None)
             p_ms = cuda_ms(lambda: plain(*args), reps=5)
             need = work(name, args)
@@ -614,7 +736,7 @@ def main(argv) -> None:
                                      (need["flops"] / PEAK_FP32_FLOPS * 1e3, "operations"))
             rows.setdefault(name, {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
                                    "bound_by": bound_by, "library_ms": l_ms})
-            line = (f"[{gpu}] {name} at {tuple(args[0].shape)}: kernel {k_ms:.4f} ms "
+            line = (f"[{gpu}] {name} at {label}: kernel {k_ms:.4f} ms "
                     f"(rounds {min(k_all):.4f}-{max(k_all):.4f}), plain {p_ms:.4f} ms, "
                     f"card bound {bound_ms:.6f} ms by {bound_by} "
                     f"({need['bytes']} B, {need['flops']:.0f} flop)")
@@ -629,16 +751,31 @@ def main(argv) -> None:
                          f"fp32 rate {ops_ms:.4f} ms, chain of {need['steps']} steps "
                          f"{chain_ms:.4f} ms), kernel / one-SM bound {k_ms / one_sm:.2f}, "
                          f"{k_ms / need['steps'] * 1e3:.3f} us per step")
+            if name == "chol_inverse_base":
+                n = args[0].shape[-1]
+                line += (f"; a warp's chain of {n} column steps at {chain_us[0]:.4f} us: "
+                         f"{n * chain_us[0] / 1e3:.6f} ms")
             print(line)
+
+    # B4's fixed part (the launch, reading K^-1 and A, writing x, z, y) and its
+    # slope per iteration: the same instance at 0, 10 and 20 iterations.
+    b4 = [a[:1].contiguous() if isinstance(a, torch.Tensor) else a
+          for a in calls["admm_iterate"][0][1]]
+    b4_ms = {num: median(cuda_ms(lambda: cuda_lin.admm_iterate(*b4[:9], num, *b4[10:]),
+                                 reps=REPS, queue_ahead=True) for _ in range(ROUNDS))
+             for num in (0, 10, 20)}
+    print(f"[{gpu}] admm_iterate at {tuple(b4[1].shape)}: " + ", ".join(
+        f"{num} iterations {ms:.4f} ms" for num, ms in b4_ms.items())
+          + f"; fixed part {b4_ms[0] * 1e3:.3f} us, slope "
+          f"{(b4_ms[20] - b4_ms[0]) / 20 * 1e3:.3f} us per iteration")
 
     # Yardsticks that take more than one PyTorch call (printed, not in the
     # kernels line): B2 by Cholesky, and B1 as a factorization and a solve.
-    K2 = next(a[0][:1].contiguous() for _, a in calls["gj_inverse"])
+    K2 = next(a[0][:1].contiguous() for _, a, _ in calls["gj_inverse"])
     ms_chol = cuda_ms(lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(K2).L), reps=REPS)
     print(f"[{gpu}] gj_inverse at {tuple(K2.shape)}: torch.linalg.cholesky_ex + "
           f"torch.cholesky_inverse (a pair) {ms_chol:.4f} ms")
-    for args in cases_b1(calls):
-        K1 = args[0]
+    for K1 in (K for K, strides in cases_b1(calls) if strides is None):
         eye = torch.eye(K1.shape[-1], device=device, dtype=K1.dtype).expand_as(K1)
         ms_pair = cuda_ms(lambda: torch.linalg.solve_triangular(
             torch.linalg.cholesky_ex(K1).L, eye, upper=False), reps=5)
@@ -649,9 +786,6 @@ def main(argv) -> None:
     # Cholesky inverse at the throughput K's size. Recorded, not switched.
     from g1_locomotion_tpu_torch.ops.lin import spd_inverse
 
-    gen = torch.Generator().manual_seed(2)
-    M = torch.randn((B_THROUGHPUT, 120, 120), generator=gen).to(device)
-    Kb = M @ M.mT + 120 * torch.eye(120, device=device)
     rec_ms = cuda_ms(lambda: spd_inverse(Kb), reps=5)
     lib_ms = cuda_ms(lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(Kb).L), reps=5)
     print(f"[{gpu}] SPD inverse (4096, 120, 120): recursion + B1 {rec_ms:.3f} ms, "

@@ -1,9 +1,15 @@
-// A measuring aid, not a kernel of the port: the cost of the dependent chain
-// that bounds the Gauss-Jordan kernels (B2, B3 of lin_kernels.cu) at B = 1.
-// Each of their m steps passes values from one warp to all others through
-// shared memory and one block barrier; this kernel does only that, `steps`
-// times, in one block of `warps` warps, so time / steps is the least a step
-// of such a chain can take on one SM.
+// A measuring aid, not a kernel of the port: the cost of the dependent chains
+// that bound the one-block kernels (B2, B3, B4 of lin_kernels.cu) at B = 1 and
+// a warp of the Cholesky base kernel (B1).
+//
+// barrier_chain_kernel: each step of B2 / B3 / B4 passes values from one warp
+// to all others through shared memory and one block barrier; this kernel does
+// only that, `steps` times, in one block of `warps` warps, so time / steps is
+// the least a step of such a chain can take on one SM.
+//
+// warp_chain_kernel: each column step of B1 passes values from one lane to
+// the others of its warp through shared memory and one __syncwarp(); this
+// kernel does only that, in one warp.
 //
 // Build: as lin_kernels.cu (nvcc -shared, plain C interface, ctypes).
 
@@ -28,6 +34,19 @@ __global__ void barrier_chain_kernel(float* __restrict__ out, int steps) {
   out[warp * kWarp + lane] = acc;
 }
 
+__global__ void warp_chain_kernel(float* __restrict__ out, int steps) {
+  __shared__ float buf[2][kWarp];
+  const int lane = threadIdx.x;
+  float acc = static_cast<float>(lane);
+  for (int j = 0; j < steps; ++j) {
+    // One lane stores what depends on its last load; every lane loads it.
+    if (lane == j % kWarp) buf[j & 1][0] = acc + 1.0f;
+    __syncwarp();
+    acc += buf[j & 1][0];
+  }
+  out[lane] = acc;
+}
+
 }  // namespace
 
 // `out` holds warps * 32 floats. Returns a cudaError_t.
@@ -35,5 +54,12 @@ extern "C" int probe_barrier_chain(float* out, int steps, int warps, void* strea
   if (steps < 0 || warps < 1 || warps > 32) return cudaErrorInvalidValue;
   barrier_chain_kernel<<<1, dim3(kWarp, warps), 0, static_cast<cudaStream_t>(stream)>>>(out,
                                                                                          steps);
+  return cudaGetLastError();
+}
+
+// `out` holds 32 floats. Returns a cudaError_t.
+extern "C" int probe_warp_chain(float* out, int steps, void* stream) {
+  if (steps < 0) return cudaErrorInvalidValue;
+  warp_chain_kernel<<<1, kWarp, 0, static_cast<cudaStream_t>(stream)>>>(out, steps);
   return cudaGetLastError();
 }

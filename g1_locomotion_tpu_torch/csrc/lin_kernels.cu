@@ -20,6 +20,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <utility>
 
 namespace {
 
@@ -52,89 +53,131 @@ cudaError_t allow_smem(const void* kernel, size_t bytes, bool (&raised)[kMaxDevi
 // Replaces g1_locomotion_tpu/ops/pallas_lin.py:chol_inverse_base
 // (_chol_inv_kernel): W = L^-1 with K = L L^T for a batch of SPD blocks
 // (B, n, n), n <= 32, the base case of the recursive matmul-only SPD inverse
-// (ops/lin.py). Column Cholesky with the diagonal clamped at 1e-30, then
-// forward substitution on the identity.
+// (ops/lin.py). Column Cholesky with the diagonal clamped at 1e-30 and one
+// reciprocal per column, then forward substitution on the identity. Only
+// the lower triangle of K is used, as there.
 //
-// What bounds it: the factorization is a chain of n dependent column steps
-// on ~n^3/3 flops; a 30x30 block is 3.6 KB, so the work is latency of the
-// sequential steps, not bytes or flops. Design: one warp per matrix, one
-// lane per row (Cholesky) or per column (substitution); L and W live in
-// shared memory with a padded row stride (33, coprime with the 32 banks) so
-// a lane walking its own row hits a distinct bank; steps are separated by
-// __syncwarp() only, and the pivot reaches all lanes by a warp shuffle.
-// Several warps (matrices) share a block to keep the SM occupied.
+// K and W are strided: element (b, r, c) lies at b * batch stride +
+// r * row stride + c, so the kernel reads a block of a larger matrix where it
+// lies and writes W into its place in the parent's W (the recursion makes no
+// copies).
+//
+// What bounds it: a 30 x 30 block is 3.6 KB and 2 n^3 / 3 = 18 kflop; at
+// B = 4096 the bytes (29.5 MB) take 0.009 ms at the card's memory rate, the
+// operations less. In practice it is neither: the work is a chain of n
+// dependent column steps, each a few dozen instructions for a warp, with 31
+// matrices sharing an SM, and a block that lies inside a larger matrix is
+// read and written as rows of n values that fill no whole 128-byte line.
+// Design: one warp per matrix, n a compile-time constant, everything in
+// registers, every loop unrolled. Lane t holds one array v[0..n): column t
+// of the trailing matrix (so the load is
+// one coalesced row per instruction, whatever the strides) until its own
+// column is the pivot, and from then on minus the running sums of column t
+// of W, acc[r] = sum_k L[r, k] W[k, t]: a lane needs the one before the
+// pivot reaches it and the other after, so both updates are one
+// multiply-add per entry with a multiplier of the lane's own. Step j:
+//   lane j, which holds all of column j, publishes it as it is, with
+//   rd = 1 / sqrt(max(a_jj, 1e-30)) in place of a_jj, to a shared-memory line
+//   of 32 values (16-byte stores), and clears its own copy;
+//   one __syncwarp(); every lane reads the line back (16-byte broadcast
+//   loads, and its own entry a_tj);
+//   W[j, t] is final and is stored at once (row j of W: one coalesced store):
+//   rd in lane j, -acc[j] * rd in lanes t < j, exact zeros in lanes t > j;
+//   v[k] -= a_kj * m for k > j, with m = a_tj * rd * rd in lanes t > j (the
+//   right-looking Cholesky update, L[k, j] L[t, j]) and m = W[j, t] * rd in
+//   lanes t <= j (the substitution, L[k, j] W[j, t]).
+// L itself is never formed: a product with L[k, j] = a_kj * rd carries the rd
+// in its other factor, which saves scaling the column. The lines are taken
+// in turns (two per warp), so one __syncwarp() a step is enough. Each block
+// holds a few warps (the caller's choice; it made no difference from 1 to 16
+// on an H100). With 256 bytes of shared memory a matrix and 66 to 80
+// registers a thread at float32 (n = 25 to 32), 24 of the 31 matrices that an
+// SM gets at B = 4096 are resident at once and the rest follow as blocks
+// retire.
 // ---------------------------------------------------------------------------
 
-constexpr int kBaseLd = 33;
-constexpr int kBaseMatsPerBlock = 4;
-
+// 16 bytes of T, moved with one instruction.
 template <typename T>
-__global__ void chol_inv_base_kernel(const T* __restrict__ K, T* __restrict__ W,
-                                     int batch, int n) {
+struct alignas(16) Pack {
+  static constexpr int E = 16 / sizeof(T);
+  T v[E];
+};
+
+template <typename T, int N>
+__global__ void chol_inv_base_kernel(const T* __restrict__ K, T* __restrict__ W, int batch,
+                                     long long k_batch, long long k_row, long long w_batch,
+                                     long long w_row) {
+  constexpr int E = Pack<T>::E;
+  constexpr int NP = (N + E - 1) / E * E;  // N rounded up to whole packs, <= 32
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
   const int lane = threadIdx.x;
-  const int slot = threadIdx.y;
-  const int b = blockIdx.x * kBaseMatsPerBlock + slot;
+  const long long b = static_cast<long long>(blockIdx.x) * blockDim.y + threadIdx.y;
   if (b >= batch) return;  // a whole warp leaves together
-  T* L = smem + slot * 2 * kWarp * kBaseLd;
-  T* Wt = L + kWarp * kBaseLd;
-  const T* Kb = K + static_cast<size_t>(b) * n * n;
+  Pack<T>* lines = reinterpret_cast<Pack<T>*>(smem_raw) + threadIdx.y * 2 * (kWarp / E);
+  const T* Kb = K + b * k_batch;
+  T* Wb = W + b * w_batch;
 
-  for (int idx = lane; idx < n * n; idx += kWarp) {
-    L[(idx / n) * kBaseLd + idx % n] = Kb[idx];
-  }
-  __syncwarp();
+  T v[NP];
+#pragma unroll
+  for (int k = 0; k < NP; ++k) v[k] = (k < N && lane < N) ? Kb[k * k_row + lane] : T(0);
 
-  // Left-looking Cholesky in place over the lower triangle of K.
-  const int i = lane;
-  for (int j = 0; j < n; ++j) {
-    T s = T(0);
-    if (i >= j && i < n) {
-      T acc = T(0);
-      for (int k = 0; k < j; ++k) acc += L[i * kBaseLd + k] * L[j * kBaseLd + k];
-      s = L[i * kBaseLd + j] - acc;
-    }
-    T d = __shfl_sync(kFullMask, s, j);
-    d = sqrt(d < T(1e-30) ? T(1e-30) : d);  // NaN stays NaN
-    if (i == j) {
-      L[i * kBaseLd + j] = d;
-    } else if (i > j && i < n) {
-      L[i * kBaseLd + j] = s / d;
-    }
-    __syncwarp();
-  }
-
-  // Forward substitution on the identity, one row of W per step:
-  // W[r, c] = (delta_rc - sum_{k<r} L[r, k] W[k, c]) / L[r, r], lane = c.
-  const int c = lane;
-  for (int r = 0; r < n; ++r) {
-    if (c < n) {
-      T acc = T(0);
-      for (int k = 0; k < r; ++k) acc += L[r * kBaseLd + k] * Wt[k * kBaseLd + c];
-      Wt[r * kBaseLd + c] = ((r == c ? T(1) : T(0)) - acc) / L[r * kBaseLd + r];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    Pack<T>* line = lines + (j & 1) * (kWarp / E);
+    if (lane == j) {
+      T d = v[j];
+      d = sqrt(d < T(1e-30) ? T(1e-30) : d);  // NaN stays NaN
+      v[j] = T(1) / d;
+#pragma unroll
+      for (int q = j / E; q < NP / E; ++q) {
+        Pack<T> p;
+#pragma unroll
+        for (int e = 0; e < E; ++e) p.v[e] = v[q * E + e];  // entries k < j are not read
+        line[q] = p;
+      }
+#pragma unroll
+      for (int k = j + 1; k < N; ++k) v[k] = T(0);
     }
     __syncwarp();
-  }
-
-  T* Wb = W + static_cast<size_t>(b) * n * n;
-  for (int idx = lane; idx < n * n; idx += kWarp) {
-    Wb[idx] = Wt[(idx / n) * kBaseLd + idx % n];
+    T col[NP];
+#pragma unroll
+    for (int q = j / E; q < NP / E; ++q) {
+      const Pack<T> p = line[q];
+#pragma unroll
+      for (int e = 0; e < E; ++e) col[q * E + e] = p.v[e];
+    }
+    const T rd = col[j];
+    // a_tj where t > j; the other lanes read a value they do not use.
+    const T a_tj = reinterpret_cast<const T*>(line)[lane];
+    const T w = lane == j ? rd : v[j] * rd;  // W[j, t] where t <= j
+    const T m = (lane > j ? a_tj * rd : w) * rd;
+    if (lane < N) Wb[j * w_row + lane] = lane > j ? T(0) : w;
+#pragma unroll
+    for (int k = j + 1; k < N; ++k) v[k] -= col[k] * m;
   }
 }
 
 template <typename T>
-cudaError_t launch_chol_inv_base(const T* K, T* W, int batch, int n, cudaStream_t stream) {
+using CholInvBaseKernel = void (*)(const T*, T*, int, long long, long long, long long, long long);
+
+template <typename T, int... Ns>
+CholInvBaseKernel<T> chol_inv_base_for(int n, std::integer_sequence<int, Ns...>) {
+  static const CholInvBaseKernel<T> table[] = {&chol_inv_base_kernel<T, Ns + 1>...};
+  return table[n - 1];
+}
+
+// `warps` matrices share a block (1..32). Strides in elements.
+template <typename T>
+cudaError_t launch_chol_inv_base(const T* K, T* W, int batch, int n, long long k_batch,
+                                 long long k_row, long long w_batch, long long w_row, int warps,
+                                 cudaStream_t stream) {
   if (batch <= 0) return cudaSuccess;
-  if (n < 1 || n > kWarp) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(T) * kBaseMatsPerBlock * 2 * kWarp * kBaseLd;
-  static bool raised[kMaxDevices] = {};
-  cudaError_t err =
-      allow_smem(reinterpret_cast<const void*>(&chol_inv_base_kernel<T>), smem, raised);
-  if (err != cudaSuccess) return err;
-  const dim3 block(kWarp, kBaseMatsPerBlock);
-  const dim3 grid((batch + kBaseMatsPerBlock - 1) / kBaseMatsPerBlock);
-  chol_inv_base_kernel<T><<<grid, block, smem, stream>>>(K, W, batch, n);
+  if (n < 1 || n > kWarp || warps < 1 || warps > kWarp) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(T) * warps * 2 * kWarp;
+  const dim3 block(kWarp, warps);
+  const dim3 grid((batch + warps - 1) / warps);
+  chol_inv_base_for<T>(n, std::make_integer_sequence<int, kWarp>{})<<<grid, block, smem, stream>>>(
+      K, W, batch, k_batch, k_row, w_batch, w_row);
   return cudaGetLastError();
 }
 
@@ -497,24 +540,242 @@ cudaError_t launch_gj(const T* K, const T* rhs, T* out, int batch, int m, int ti
 // x~ is applied as K^-1 rhs, as the reference's XLA loop does (ops/qp.py);
 // the TPU kernel's rhs K^-T sums the same products.
 //
-// What bounds it: three matrix-vector products per iteration over K^-1
-// (n x n) and A (m x n), ~2(n^2 + 2mn) flops against 4(n^2 + mn) bytes: at
-// n = 120, m = 200 that is 0.5 flop per byte, memory-bound if the operands
-// were re-read from device memory every iteration. Design: one block per
-// instance; K^-1 (57.6 KB) and A (96 KB) are read from device memory once
-// into shared memory (153.6 KB at f32) and stay there for all `num`
-// iterations, with every vector. A^T is never stored: A^T w runs one thread
-// per column down A's rows (consecutive threads, consecutive addresses);
-// K^-1 rhs and A x~ run one warp per row with a shuffle reduction.
+// What bounds it: one instance is one block on one SM, and an iteration is
+// three matrix-vector products that depend on each other, 2 (n^2 + 2 m n)
+// flops: at n = 120, m = 200 a quarter of a microsecond at that SM's rate.
+// K^-1 and A are read from device memory once (154 KB), which one SM takes
+// more than a microsecond to pull in: the launch's fixed part. What an
+// iteration costs in practice is the instructions every warp executes around
+// its multiply-adds and the exchanges between warps, one per product.
+//
+// Design (admm_tile_kernel, float32 with n <= 128 and m <= 208): K^-1 and A
+// live in registers for the whole launch. Warp ty, lane tx owns rows
+// ty + 16 i and columns tx + 32 k of both: 13 x 4 values of A, 8 x 4 of K^-1.
+// Shared memory holds only vectors and partial sums. Per iteration:
+//   A^T w: a thread sums its rows of A against w (its warp's 13 entries),
+//     and the 16 warps' partial sums of each column meet in shared memory;
+//     after barrier 1 every thread adds up the 16 partials of its own four
+//     columns (16-byte loads), so every warp has rhs. A^T is never stored.
+//   K^-1 rhs: a thread sums its columns, the warp's lanes reduce (below),
+//     and x~ of the warp's 8 rows goes to shared memory; barrier 2.
+//   A x~: the same along the rows of A; the lanes reduce; then the warp
+//     that owns a row updates z, y and w = rho z - y for it at once, with no
+//     barrier: the row's z, y stay in that lane's registers, l, u, rho and
+//     1 / rho (one division per launch) in the lane's own shared-memory slot.
+// Two block barriers per iteration, one per exchange between warps; x is
+// kept by every thread for its own columns. The lanes' reduction is a
+// transposing one: V sums over 32 lanes are folded by halves, each lane
+// keeping the half its lane bit selects, so lane t ends with the total of sum
+// t / (32 / V) after V - 1 + log2(32 / V) shuffles, where V butterflies take
+// 5 V and leave every lane with every sum, which nothing needs.
+// Rows and columns beyond m and n are zero and stay zero.
+//
+// admm_smem_kernel keeps K^-1 and A in dynamic shared memory (153.6 KB at
+// f32 for the MPC's size) with one warp per row and five barriers per
+// iteration, for float64 and for sizes beyond the tile. The main path does
+// not reach it.
 // ---------------------------------------------------------------------------
 
-constexpr int kAdmmWarps = 8;
+constexpr int kAdmmW = 16;   // warps of the tile kernel
+constexpr int kAdmmRA = 13;  // rows of A a thread: 16 x 13 = 208
+constexpr int kAdmmRK = 8;   // rows of K^-1 a thread: 16 x 8 = 128
+constexpr int kAdmmC = 4;    // columns a thread: 32 x 4 = 128
+// Floats between two columns' partial sums (16 warps' and 4 of padding): the
+// 16-byte loads of eight neighbouring lanes then fall in different banks.
+constexpr int kAdmmPartLd = 20;
+constexpr int kAdmmSmemWarps = 8;  // warps of admm_smem_kernel
+
+// V sums spread over the warp's lanes, v[p] being this lane's part of sum p:
+// returns, in lane t, the total of sum t / (32 / V). V is a power of two.
+template <int V>
+__device__ __forceinline__ float transpose_reduce(float (&v)[V], int lane) {
+#pragma unroll
+  for (int s = 0; s < 5; ++s) {  // lane bits 4..0
+    const int off = (kWarp / 2) >> s;
+    const int h = (V / 2) >> s;  // sums to fold at this bit; 0 once one is left
+    if (h >= 1) {
+      const bool up = (lane & off) != 0;
+#pragma unroll
+      for (int p = 0; p < V / 2; ++p) {
+        if (p < h) {
+          const float keep = up ? v[p + h] : v[p];
+          const float send = up ? v[p] : v[p + h];
+          v[p] = keep + __shfl_xor_sync(kFullMask, send, off);
+        }
+      }
+    } else {
+      v[0] += __shfl_xor_sync(kFullMask, v[0], off);
+    }
+  }
+  return v[0];
+}
+
+__global__ void __launch_bounds__(kWarp * kAdmmW, 1)
+    admm_tile_kernel(const float* __restrict__ Kinv, const float* __restrict__ A,
+                     const float* __restrict__ q, const float* __restrict__ l,
+                     const float* __restrict__ u, const float* __restrict__ rho,
+                     const float* __restrict__ x0, const float* __restrict__ z0,
+                     const float* __restrict__ y0, float* __restrict__ xo,
+                     float* __restrict__ zo, float* __restrict__ yo, int n, int m, int num,
+                     float sigma, float alpha, float beta) {
+  constexpr int W = kAdmmW, RA = kAdmmRA, RK = kAdmmRK, C = kAdmmC;
+  constexpr int kRowSlots = kWarp / 2;  // row states a warp keeps: lanes 2 i and 2 i + 1, row i
+  static_assert(RA <= kRowSlots && kWarp % RK == 0, "rows map onto lanes");
+  __shared__ float4 part[kWarp * C * kAdmmPartLd / 4];  // [column][warp]
+  __shared__ float4 wbuf[W * kRowSlots / 4];            // [warp][row slot]: w = rho z - y
+  __shared__ float xts[kWarp * C];                      // x~
+  __shared__ float bounds[4][kWarp * W];                // l, u, rho, 1 / rho of a lane's row
+
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const size_t b = blockIdx.x;
+  const float* Ab = A + b * m * n;
+  const float* Kb = Kinv + b * n * n;
+
+  float a[RA][C], ki[RK][C];
+#pragma unroll
+  for (int i = 0; i < RA; ++i) {
+    const int r = ty + W * i;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const int c = tx + kWarp * k;
+      a[i][k] = (r < m && c < n) ? Ab[r * n + c] : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RK; ++i) {
+    const int r = ty + W * i;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const int c = tx + kWarp * k;
+      ki[i][k] = (r < n && c < n) ? Kb[r * n + c] : 0.0f;
+    }
+  }
+  float x[C], qv[C];
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const int c = tx + kWarp * k;
+    x[k] = c < n ? x0[b * n + c] : 0.0f;
+    qv[k] = c < n ? q[b * n + c] : 0.0f;
+  }
+  // The row this lane keeps: slot tx / 2 of its warp, row ty + 16 (tx / 2).
+  const int slot = tx / 2;
+  const int row = ty + W * slot;
+  const bool has_row = slot < RA && row < m;
+  float z = 0.0f, y = 0.0f;
+  // This thread's own slot, which no other thread touches: no barrier.
+  const unsigned bnd = smem_addr(&bounds[0][ty * kWarp + tx]);
+  constexpr int kBound = 4 * kWarp * W;  // bytes from l to u to rho to 1 / rho
+  {
+    float lo = 0.0f, hi = 0.0f, rh = 1.0f;
+    if (has_row) {
+      z = z0[b * m + row], y = y0[b * m + row];
+      lo = l[b * m + row], hi = u[b * m + row], rh = rho[b * m + row];
+    }
+    sts32(bnd, lo), sts32(bnd + kBound, hi), sts32(bnd + 2 * kBound, rh);
+    sts32(bnd + 3 * kBound, 1.0f / rh);
+  }
+  const unsigned wdst = smem_addr(wbuf) + 4 * (ty * kRowSlots + slot);
+  const unsigned wsrc = smem_addr(wbuf) + 4 * ty * kRowSlots;
+  const unsigned pdst = smem_addr(part) + 4 * (tx * kAdmmPartLd + ty);
+  const unsigned psrc = smem_addr(part) + 4 * tx * kAdmmPartLd;
+  const unsigned xsrc = smem_addr(xts) + 4 * tx;
+  const unsigned xdst = smem_addr(xts) + 4 * (ty + W * (tx / (kWarp / RK)));
+  float wv = lds32(bnd + 2 * kBound) * z - y;
+
+  for (int it = 0; it < num; ++it) {
+    // A^T w: this thread's rows, then the 16 warps' partial sums.
+    sts32(wdst, wv);
+    __syncwarp();
+    {
+      float w[kRowSlots];
+#pragma unroll
+      for (int g = 0; g < (RA + 3) / 4; ++g) {
+        const float4 t = lds128(wsrc + 16 * g);
+        w[4 * g] = t.x, w[4 * g + 1] = t.y, w[4 * g + 2] = t.z, w[4 * g + 3] = t.w;
+      }
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        float p = 0.0f;
+#pragma unroll
+        for (int i = 0; i < RA; ++i) p += a[i][k] * w[i];
+        sts32(pdst + 4 * kWarp * kAdmmPartLd * k, p);
+      }
+    }
+    __syncthreads();
+    // rhs of this thread's columns, then x~ = K^-1 rhs for the warp's rows.
+    {
+      float rhs[C];
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        float s = 0.0f;
+#pragma unroll
+        for (int g = 0; g < W / 4; ++g) {
+          const float4 t = lds128(psrc + 4 * kWarp * kAdmmPartLd * k + 16 * g);
+          s += (t.x + t.y) + (t.z + t.w);
+        }
+        rhs[k] = sigma * x[k] - qv[k] + s;
+      }
+      float v[RK];
+#pragma unroll
+      for (int i = 0; i < RK; ++i) {
+        float s = 0.0f;
+#pragma unroll
+        for (int k = 0; k < C; ++k) s += ki[i][k] * rhs[k];
+        v[i] = s;
+      }
+      const float xt = transpose_reduce<RK>(v, tx);
+      if (tx % (kWarp / RK) == 0) sts32(xdst, xt);
+    }
+    __syncthreads();
+    // z~ = A x~ for the warp's rows; the row's owner lanes update z, y, w.
+    {
+      float xt[C];
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        xt[k] = lds32(xsrc + 4 * kWarp * k);
+        x[k] = alpha * xt[k] + beta * x[k];
+      }
+      float v[kRowSlots];
+#pragma unroll
+      for (int i = 0; i < kRowSlots; ++i) {
+        float s = 0.0f;
+        if (i < RA) {
+#pragma unroll
+          for (int k = 0; k < C; ++k) s += a[i][k] * xt[k];
+        }
+        v[i] = s;
+      }
+      const float zt = transpose_reduce<kRowSlots>(v, tx);
+      const float lo = lds32(bnd), hi = lds32(bnd + kBound);
+      const float rh = lds32(bnd + 2 * kBound), rinv = lds32(bnd + 3 * kBound);
+      const float za = alpha * zt + beta * z;
+      float zn = za + y * rinv;
+      zn = zn > lo ? zn : lo;
+      zn = zn < hi ? zn : hi;
+      y = y + rh * (za - zn);
+      z = zn;
+      wv = rh * z - y;
+    }
+  }
+
+  if (ty == 0) {
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const int c = tx + kWarp * k;
+      if (c < n) xo[b * n + c] = x[k];
+    }
+  }
+  if (has_row && tx % 2 == 0) {
+    zo[b * m + row] = z;
+    yo[b * m + row] = y;
+  }
+}
 
 template <typename T>
 __device__ void warp_matvec(const T* M, const T* v, T* out, int rows, int cols) {
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
-  for (int r = warp; r < rows; r += kAdmmWarps) {
+  for (int r = warp; r < rows; r += kAdmmSmemWarps) {
     T acc = T(0);
     for (int c = lane; c < cols; c += kWarp) acc += M[r * cols + c] * v[c];
     for (int off = kWarp / 2; off > 0; off /= 2) acc += __shfl_xor_sync(kFullMask, acc, off);
@@ -523,13 +784,13 @@ __device__ void warp_matvec(const T* M, const T* v, T* out, int rows, int cols) 
 }
 
 template <typename T>
-__global__ void admm_kernel(const T* __restrict__ Kinv, const T* __restrict__ A,
-                            const T* __restrict__ q, const T* __restrict__ l,
-                            const T* __restrict__ u, const T* __restrict__ rho,
-                            const T* __restrict__ x0, const T* __restrict__ z0,
-                            const T* __restrict__ y0, T* __restrict__ xo, T* __restrict__ zo,
-                            T* __restrict__ yo, int n, int m, int num, T sigma, T alpha,
-                            T beta) {
+__global__ void admm_smem_kernel(const T* __restrict__ Kinv, const T* __restrict__ A,
+                                 const T* __restrict__ q, const T* __restrict__ l,
+                                 const T* __restrict__ u, const T* __restrict__ rho,
+                                 const T* __restrict__ x0, const T* __restrict__ z0,
+                                 const T* __restrict__ y0, T* __restrict__ xo,
+                                 T* __restrict__ zo, T* __restrict__ yo, int n, int m, int num,
+                                 T sigma, T alpha, T beta) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sK = reinterpret_cast<T*>(smem_raw);  // (n, n)
   T* sA = sK + n * n;                      // (m, n)
@@ -595,20 +856,36 @@ __global__ void admm_kernel(const T* __restrict__ Kinv, const T* __restrict__ A,
   }
 }
 
+// `tile` picks the register-tile kernel (float32 only, n and m within the
+// tile); the caller decides (ops/cuda_lin.py:admm_plan) and a misfit is
+// refused here.
 template <typename T>
 cudaError_t launch_admm(const T* Kinv, const T* A, const T* q, const T* l, const T* u,
                         const T* rho, const T* x, const T* z, const T* y, T* xo, T* zo, T* yo,
-                        int batch, int n, int m, int num, double sigma, double alpha,
+                        int batch, int n, int m, int num, double sigma, double alpha, int tile,
                         cudaStream_t stream) {
   if (batch <= 0) return cudaSuccess;
   if (n < 1 || m < 1 || num < 0) return cudaErrorInvalidValue;
+  if (tile) {
+    if constexpr (sizeof(T) == sizeof(float)) {
+      if (n > kWarp * kAdmmC || n > kAdmmW * kAdmmRK || m > kAdmmW * kAdmmRA) {
+        return cudaErrorInvalidValue;
+      }
+      admm_tile_kernel<<<batch, dim3(kWarp, kAdmmW), 0, stream>>>(
+          Kinv, A, q, l, u, rho, x, z, y, xo, zo, yo, n, m, num, static_cast<float>(sigma),
+          static_cast<float>(alpha), static_cast<float>(1.0 - alpha));
+      return cudaGetLastError();
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  }
   const size_t smem = sizeof(T) * (static_cast<size_t>(n) * n + static_cast<size_t>(m) * n +
                                    4 * static_cast<size_t>(n) + 7 * static_cast<size_t>(m));
   static bool raised[kMaxDevices] = {};
   cudaError_t err =
-      allow_smem(reinterpret_cast<const void*>(&admm_kernel<T>), smem, raised);
+      allow_smem(reinterpret_cast<const void*>(&admm_smem_kernel<T>), smem, raised);
   if (err != cudaSuccess) return err;
-  admm_kernel<T><<<batch, kAdmmWarps * kWarp, smem, stream>>>(
+  admm_smem_kernel<T><<<batch, kAdmmSmemWarps * kWarp, smem, stream>>>(
       Kinv, A, q, l, u, rho, x, z, y, xo, zo, yo, n, m, num, static_cast<T>(sigma),
       static_cast<T>(alpha), static_cast<T>(1.0 - alpha));
   return cudaGetLastError();
@@ -618,12 +895,18 @@ cudaError_t launch_admm(const T* Kinv, const T* A, const T* q, const T* l, const
 
 // ---------------------------------------------------------------------------
 // Plain C interface (ctypes). Pointers are device pointers of contiguous
-// row-major tensors; `stream` is a cudaStream_t. Returns a cudaError_t.
+// row-major tensors (B1: of tensors with the given batch and row strides, in
+// elements, and unit column stride); `stream` is a cudaStream_t. Returns a
+// cudaError_t.
 // ---------------------------------------------------------------------------
 
 #define LIN_DEFINE_ENTRIES(T, SUFFIX)                                                           \
-  extern "C" int lin_chol_inv_base_##SUFFIX(const T* K, T* W, int batch, int n, void* stream) { \
-    return launch_chol_inv_base<T>(K, W, batch, n, static_cast<cudaStream_t>(stream));        \
+  extern "C" int lin_chol_inv_base_##SUFFIX(const T* K, T* W, int batch, int n,                \
+                                            long long k_batch, long long k_row,                 \
+                                            long long w_batch, long long w_row, int warps,      \
+                                            void* stream) {                                     \
+    return launch_chol_inv_base<T>(K, W, batch, n, k_batch, k_row, w_batch, w_row, warps,       \
+                                   static_cast<cudaStream_t>(stream));                          \
   }                                                                                             \
   extern "C" int lin_gj_inverse_##SUFFIX(const T* K, T* out, int batch, int m, int tile,       \
                                          void* stream) {                                        \
@@ -637,9 +920,9 @@ cudaError_t launch_admm(const T* Kinv, const T* A, const T* q, const T* l, const
   extern "C" int lin_admm_iterate_##SUFFIX(                                                     \
       const T* Kinv, const T* A, const T* q, const T* l, const T* u, const T* rho, const T* x, \
       const T* z, const T* y, T* xo, T* zo, T* yo, int batch, int n, int m, int num,            \
-      double sigma, double alpha, void* stream) {                                               \
+      double sigma, double alpha, int tile, void* stream) {                                     \
     return launch_admm<T>(Kinv, A, q, l, u, rho, x, z, y, xo, zo, yo, batch, n, m, num, sigma,  \
-                          alpha, static_cast<cudaStream_t>(stream));                            \
+                          alpha, tile, static_cast<cudaStream_t>(stream));                      \
   }
 
 LIN_DEFINE_ENTRIES(float, f32)

@@ -22,13 +22,19 @@ The CUDA source is compiled at first use with ``nvcc`` into a shared
 library with a plain C interface under ``g1_locomotion_tpu_torch/_build/``
 and loaded with ``ctypes``; a CPU call never reaches the loader.
 
+B1 reads and writes strided blocks: ``K`` and ``out`` may be views of larger
+matrices (any batch and row stride, unit column stride), so the recursion of
+``ops/lin.py`` hands it blocks where they lie.
+
 Shared memory per block (``MAX_SMEM_BYTES`` is what a Hopper block can use),
-in elements of the working type: B1 a fixed 8,448; B4 ``n^2 + m n + 4 n +
-7 m``; B2 and B3 none beyond two small static buffers when the system fits
-the float32 register tile (``GJ_TILE``: B2 m <= 128, B3 m <= 208), else the
-in-place array and the saved column, ``m w + m`` with ``w = m`` for B2 and
-``m + 1`` for B3 (m <= 240 at float32, m <= 169 at float64, for either).
-``gj_plan`` decides.
+in elements of the working type: B1 64 per matrix; B2 and B3 none beyond
+two small static buffers when the system fits the float32 register tile
+(``GJ_TILE``: B2 m <= 128, B3 m <= 208), else the in-place array and the
+saved column, ``m w + m`` with ``w = m`` for B2 and ``m + 1`` for B3
+(m <= 240 at float32, m <= 169 at float64, for either); B4 a few static
+vectors when the QP fits the float32 register tile (``ADMM_TILE``: m <= 208,
+n <= 128), else ``n^2 + m n + 4 n + 7 m``. ``gj_plan`` and ``admm_plan``
+decide.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -54,18 +60,23 @@ NVCC_FLAGS = (
 )
 MAX_SMEM_BYTES = 232448  # dynamic shared memory a block may use on Hopper
 BASE_MAX = 32            # largest block the Cholesky base kernel takes
+BASE_WARPS = 4           # matrices (warps) per block of the Cholesky base kernel
 # (rows, columns) of the float32 register tiles of B2 and B3, as in the CUDA
 # source: kGj<Kind>W * kGj<Kind>R and 32 * kGj<Kind>C.
 GJ_TILE = {"gj_inverse": (128, 128), "gj_solve": (208, 224)}
+# (rows of A, columns) of B4's float32 register tile: kAdmmW * kAdmmRA and
+# 32 * kAdmmC (K^-1's rows, kAdmmW * kAdmmRK, cover the columns).
+ADMM_TILE = (208, 128)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+_L = ctypes.c_longlong
 _SIGNATURES = {
-    "lin_chol_inv_base": [_P, _P, _I, _I, _P],
+    "lin_chol_inv_base": [_P, _P, _I, _I, _L, _L, _L, _L, _I, _P],
     "lin_gj_inverse": [_P, _P, _I, _I, _I, _P],
     "lin_gj_solve": [_P, _P, _P, _I, _I, _I, _P],
-    "lin_admm_iterate": [_P] * 12 + [_I, _I, _I, _I, _D, _D, _P],
+    "lin_admm_iterate": [_P] * 12 + [_I, _I, _I, _I, _D, _D, _I, _P],
 }
 
 
@@ -143,9 +154,12 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def _check(name: str, tensors: Dict[str, torch.Tensor], shapes: Dict[str, tuple]) -> None:
+def _check(name: str, tensors: Dict[str, torch.Tensor], shapes: Dict[str, tuple],
+           strided: bool = False) -> None:
     """Raise unless every tensor is a contiguous CUDA float32/float64 tensor of
-    one dtype and one device, with the expected shape."""
+    one dtype and one device, with the expected shape. With ``strided`` a
+    (B, n, n) tensor may instead have any non-negative batch and row strides,
+    with unit column stride."""
     first = next(iter(tensors.values()))
     for key, t in tensors.items():
         if not t.is_cuda:
@@ -157,7 +171,11 @@ def _check(name: str, tensors: Dict[str, torch.Tensor], shapes: Dict[str, tuple]
             raise ValueError(f"{name}: {key} is on {t.device}, expected {first.device}")
         if tuple(t.shape) != shapes[key]:
             raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {shapes[key]}")
-        if not t.is_contiguous():
+        if strided:
+            if t.stride(-1) != 1 or min(t.stride()) < 0:
+                raise ValueError(f"{name}: {key} has strides {t.stride()}; the kernel takes "
+                                 f"unit column stride and non-negative batch and row strides")
+        elif not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
@@ -199,47 +217,65 @@ def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def chol_inverse_base_ref(K: torch.Tensor) -> torch.Tensor:
-    """Plain version of B1: W = L^-1 with K = L L' for (..., n, n), n small.
+def chol_inverse_base_ref(K: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of B1: W = L^-1 with K = L L' for (..., n, n), n small,
+    returned, or copied into ``out`` (which may be a view) where that is given.
 
-    Unrolled column Cholesky (diagonal clamped at 1e-30) and forward
-    substitution on the identity, as the reference's ``lin._chol_inv_base``.
+    Column Cholesky (diagonal clamped at 1e-30, one reciprocal per column) and
+    forward substitution on the identity, in the kernel's order of steps:
+    step j takes column j of L from the trailing matrix, subtracts its outer
+    product from the columns right of it, finishes row j of W and adds its
+    share to the rows below. (The kernel never forms L: it carries the 1 / d
+    of L[:, j] in the other factor of each product, the same to rounding.)
+    Only the lower triangle of K is read.
     """
     n = K.shape[-1]
-    L = torch.zeros_like(K)
-    for j in range(n):
-        d = K[..., j, j] - torch.sum(L[..., j, :j] ** 2, dim=-1) if j > 0 else K[..., j, j]
-        d = torch.sqrt(torch.clamp(d, min=1e-30))
-        L[..., j, j] = d
-        if j + 1 < n:
-            s = K[..., j + 1 :, j]
-            if j > 0:
-                s = s - _mv(L[..., j + 1 :, :j], L[..., j, :j])
-            L[..., j + 1 :, j] = s / d[..., None]
+    a = torch.tril(K)  # trailing matrix, lower triangle
+    acc = torch.zeros_like(K)  # acc[r, c] = sum_k L[r, k] W[k, c] over the columns done
     W = torch.zeros_like(K)
-    eye = torch.eye(n, dtype=K.dtype, device=K.device)
-    for i in range(n):
-        s = eye[i].expand(K.shape[:-1])
-        if i > 0:
-            s = s - (L[..., i, None, :i] @ W[..., :i, :])[..., 0, :]
-        W[..., i, :] = s / L[..., i, i, None]
-    return W
+    for j in range(n):
+        d = torch.sqrt(torch.clamp(a[..., j, j], min=1e-30))
+        rd = 1 / d
+        col = a[..., j + 1 :, j] * rd[..., None]  # L[j+1:, j]
+        a[..., j + 1 :, j + 1 :] -= torch.tril(col[..., :, None] * col[..., None, :])
+        w = -acc[..., j, : j + 1]
+        w[..., j] += 1
+        w = w * rd[..., None]
+        W[..., j, : j + 1] = w
+        acc[..., j + 1 :, : j + 1] += col[..., :, None] * w[..., None, :]
+    return W if out is None else out.copy_(W)
 
 
-def chol_inverse_base(K: torch.Tensor) -> torch.Tensor:
-    """B1: W = L^-1 with K = L L' for SPD K (B, n, n), n <= 32."""
-    if K.device.type == "cpu":
-        return chol_inverse_base_ref(K)
-    if K.dim() != 3:
+def chol_inverse_base(K: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """B1: W = L^-1 with K = L L' for SPD K (B, n, n), n <= 32.
+
+    ``K`` and ``out`` may be strided views (a block of a larger matrix): any
+    batch and row stride, unit column stride. With ``out`` the result is
+    written there, zeros above the diagonal included, and ``out`` is returned.
+    """
+    if K.dim() != 3 or K.shape[-1] != K.shape[-2]:
         raise ValueError(f"chol_inverse_base: K must be (B, n, n), got {tuple(K.shape)}")
+    if out is not None and (out.shape != K.shape or out.dtype != K.dtype
+                            or out.device != K.device):
+        raise ValueError(f"chol_inverse_base: out is {tuple(out.shape)} {out.dtype} on "
+                         f"{out.device}, K {tuple(K.shape)} {K.dtype} on {K.device}")
+    if K.device.type == "cpu":
+        return chol_inverse_base_ref(K, out)
     B, n, _ = K.shape
-    _check("chol_inverse_base", {"K": K}, {"K": (B, n, n)})
+    if out is None:
+        out = torch.empty_like(K, memory_format=torch.contiguous_format)
+    _check("chol_inverse_base", {"K": K, "out": out}, {"K": (B, n, n), "out": (B, n, n)},
+           strided=True)
     if not 1 <= n <= BASE_MAX:
         raise ValueError(f"chol_inverse_base: n = {n}, the kernel takes 1 <= n <= {BASE_MAX}")
-    W = torch.empty_like(K)
-    _launch("lin_chol_inv_base", K.dtype, _ptr(K), _ptr(W), B, n, _stream(K))
+    block = (n - 1) * out.stride(1) + n  # elements from a block's first to its last
+    if (n > 1 and out.stride(1) < n) or (B > 1 and out.stride(0) < block):
+        raise ValueError(f"chol_inverse_base: out has strides {out.stride()}: its rows or "
+                         f"blocks overlap")
+    _launch("lin_chol_inv_base", K.dtype, _ptr(K), _ptr(out), B, n, K.stride(0), K.stride(1),
+            out.stride(0), out.stride(1), BASE_WARPS, _stream(K))
     _count("chol_inverse_base")
-    return W
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -352,6 +388,21 @@ def admm_iterate_ref(Kinv, A, q, l, u, rho_vec, x, z, y, num: int, sigma: float,
     return x, z, y
 
 
+def admm_plan(n: int, m: int, dtype: torch.dtype) -> Tuple[bool, int]:
+    """Which kernel B4 launches for n variables and m rows: (True, 0) for the
+    float32 register-tile kernel when the QP fits ``ADMM_TILE`` (zero padding
+    to the tile happens in the kernel's registers); else (False, bytes of
+    dynamic shared memory) for the shared-memory kernel, which holds K^-1, A
+    and eleven vectors. Raises ValueError where that exceeds
+    ``MAX_SMEM_BYTES``."""
+    if n < 1 or m < 1:
+        raise ValueError(f"admm_iterate: n = {n}, m = {m}; both must be >= 1")
+    rows, cols = ADMM_TILE
+    if dtype == torch.float32 and m <= rows and n <= cols:
+        return True, 0
+    return False, _check_smem("admm_iterate", dtype, n * n + m * n + 4 * n + 7 * m)
+
+
 def admm_iterate(Kinv, A, q, l, u, rho_vec, x, z, y, num: int, sigma: float, alpha: float):
     """B4: ``num`` relaxed-ADMM iterations per instance, K^-1 fixed; (x, z, y)."""
     args = {"Kinv": Kinv, "A": A, "q": q, "l": l, "u": u, "rho_vec": rho_vec,
@@ -368,12 +419,12 @@ def admm_iterate(Kinv, A, q, l, u, rho_vec, x, z, y, num: int, sigma: float, alp
     })
     if num < 0:
         raise ValueError(f"admm_iterate: num = {num} < 0")
-    _check_smem("admm_iterate", A.dtype, n * n + m * n + 4 * n + 7 * m)
+    tile, _ = admm_plan(n, m, A.dtype)
     xo, zo, yo = torch.empty_like(x), torch.empty_like(z), torch.empty_like(y)
     _launch(
         "lin_admm_iterate", A.dtype,
         *(_ptr(t) for t in (Kinv, A, q, l, u, rho_vec, x, z, y, xo, zo, yo)),
-        B, n, m, int(num), float(sigma), float(alpha), _stream(A),
+        B, n, m, int(num), float(sigma), float(alpha), int(tile), _stream(A),
     )
     _count("admm_iterate")
     return xo, zo, yo

@@ -13,6 +13,12 @@ accuracy at cond(K) ~ 1e4). The combine steps are batched matmuls
 (``cuda_lin.chol_inverse_base``) for a CUDA tensor and its plain version for
 a CPU tensor. Because the batch is explicit, every base call is one launch
 over the whole batch.
+
+Nothing is copied on the way: W is allocated once, as zeros (the block above
+the diagonal of every level is zero), each level works on views of K and of
+W, the base case reads its block of K and writes its block of W where they
+lie (B1 takes strided blocks), and a level writes only its bottom-left
+block.
 """
 
 from __future__ import annotations
@@ -27,21 +33,26 @@ _BASE = 30  # base-case block size: 120 -> 60 -> 30, 200 -> 100 -> 50 -> 25
 def chol_inverse(K: torch.Tensor) -> torch.Tensor:
     """W = L^-1 for the Cholesky factor of batched SPD K (..., n, n)."""
     n = K.shape[-1]
+    flat = K.reshape((-1, n, n))
+    W = torch.zeros_like(flat, memory_format=torch.contiguous_format)
+    _chol_inverse_into(flat, W)
+    return W.reshape(K.shape)
+
+
+def _chol_inverse_into(K: torch.Tensor, W: torch.Tensor) -> None:
+    """Write L^-1 of K (B, n, n) into the lower triangle of W (B, n, n), whose
+    block above the diagonal blocks is zero already. Both may be views."""
+    n = K.shape[-1]
     if n <= _BASE:
-        flat = K.reshape((-1, n, n)).contiguous()
-        return cuda_lin.chol_inverse_base(flat).reshape(K.shape)
+        cuda_lin.chol_inverse_base(K, out=W)
+        return
     h = n // 2
-    A = K[..., :h, :h]
-    B = K[..., h:, :h]
-    C = K[..., h:, h:]
-    W1 = chol_inverse(A)
-    L21 = B @ W1.mT  # = K21 L1^-T
-    S = C - L21 @ L21.mT
-    W2 = chol_inverse(S)
-    bottom_left = -(W2 @ (L21 @ W1))
-    top = torch.cat([W1, K.new_zeros(K.shape[:-2] + (h, n - h))], dim=-1)
-    bot = torch.cat([bottom_left, W2], dim=-1)
-    return torch.cat([top, bot], dim=-2)
+    W1, W2 = W[:, :h, :h], W[:, h:, h:]
+    _chol_inverse_into(K[:, :h, :h], W1)
+    L21 = K[:, h:, :h] @ W1.mT  # = K21 L1^-T
+    S = K[:, h:, h:] - L21 @ L21.mT
+    _chol_inverse_into(S, W2)
+    torch.neg(W2 @ (L21 @ W1), out=W[:, h:, :h])
 
 
 def spd_inverse(K: torch.Tensor) -> torch.Tensor:

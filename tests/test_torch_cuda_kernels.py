@@ -60,14 +60,31 @@ def _counted(name, fn):
     return out
 
 
+# Every block size the kernel is built for; dense, and as the recursion of
+# ops/lin.py calls it: K a block of a larger matrix, W written into a block of
+# a larger W, both off the origin. B = 137 is more matrices than fit a block.
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["dense", "strided"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [1, 4, 25, 30, 32])
-def test_chol_inverse_base(cuda, dtype, n):
-    K = torch.tensor(_random_spd(n, 37, n), dtype=dtype, device=cuda)
-    W = _counted("chol_inverse_base", lambda: cuda_lin.chol_inverse_base(K))
-    torch.testing.assert_close(W, cuda_lin.chol_inverse_base_ref(K), rtol=TOL[dtype],
-                               atol=TOL[dtype])
+@pytest.mark.parametrize("n", list(range(1, 33)))
+def test_chol_inverse_base(cuda, dtype, n, layout):
+    K = torch.tensor(_random_spd(n, 137, n), dtype=dtype, device=cuda)
+    ref = cuda_lin.chol_inverse_base_ref(K)
+    if layout == "dense":
+        W = _counted("chol_inverse_base", lambda: cuda_lin.chol_inverse_base(K))
+    else:
+        big, off = 2 * n + 3, n + 1
+        parent = torch.full((137, big, big), 5.0, dtype=dtype, device=cuda)
+        block = (slice(None), slice(off, off + n), slice(off - 1, off - 1 + n))
+        parent[block] = K
+        target = torch.full((137, big + 2, big + 1), 7.0, dtype=dtype, device=cuda)
+        W = _counted("chol_inverse_base",
+                     lambda: cuda_lin.chol_inverse_base(parent[block], out=target[block]))
+        assert W.data_ptr() == target[block].data_ptr()
+        assert int((target == 7.0).sum()) == target.numel() - K.numel()  # only its block
+        assert torch.equal(parent[block], K)
+    torch.testing.assert_close(W, ref, rtol=TOL[dtype], atol=TOL[dtype])
+    assert torch.all(torch.triu(W, 1) == 0)
 
 
 # float32 up to m = 128 (B2) / 208 (B3) runs the register-tile kernel, all
@@ -102,14 +119,20 @@ def test_gj_solve(cuda, dtype, m, b):
                                atol=TOL[dtype])
 
 
+# float32 up to n = 128, m = 208 runs the register-tile kernel (the MPC's
+# (120, 200), the tile's full size, a ragged small QP), all else the
+# shared-memory kernel; B = 150 is more blocks than the card has SMs.
 @pytest.mark.gpu
+@pytest.mark.parametrize("num", [0, 1, 10, NUM])
 @pytest.mark.parametrize("dtype, n, m, b", [
     (torch.float32, 13, 21, 4), (torch.float64, 13, 21, 4), (torch.float32, 120, 200, 2),
+    (torch.float32, 120, 200, 1), (torch.float32, 128, 208, 2), (torch.float32, 1, 1, 3),
+    (torch.float32, 130, 40, 2), (torch.float32, 40, 210, 2), (torch.float32, 120, 200, 150),
 ])
-def test_admm_iterate(cuda, dtype, n, m, b):
+def test_admm_iterate(cuda, dtype, n, m, b, num):
     args = _admm_tensors(cuda, dtype, n, m, b)
-    out = _counted("admm_iterate", lambda: cuda_lin.admm_iterate(*args, NUM, SIGMA, ALPHA))
-    ref = cuda_lin.admm_iterate_ref(*args, NUM, SIGMA, ALPHA)
+    out = _counted("admm_iterate", lambda: cuda_lin.admm_iterate(*args, num, SIGMA, ALPHA))
+    ref = cuda_lin.admm_iterate_ref(*args, num, SIGMA, ALPHA)
     for o, r in zip(out, ref):
         scale = float(r.abs().max())
         torch.testing.assert_close(o, r, rtol=TOL[dtype], atol=TOL[dtype] * max(scale, 1.0))
@@ -134,6 +157,13 @@ def test_wrappers_refuse_bad_input(cuda):
     K = torch.eye(40, device=cuda).expand(2, 40, 40)
     with pytest.raises(ValueError):
         cuda_lin.chol_inverse_base(K.contiguous())  # n > 32
+    with pytest.raises(ValueError):
+        cuda_lin.chol_inverse_base(K[:, :8, :8].mT)  # column stride is not 1
+    with pytest.raises(ValueError):
+        cuda_lin.chol_inverse_base(K[:, :8, :8].contiguous(), out=K[:, :8, :8])  # out overlaps
+    with pytest.raises(ValueError):
+        cuda_lin.chol_inverse_base(K[:, :8, :8].contiguous(),
+                                   out=torch.empty((2, 8, 9), device=cuda))  # out's shape
     with pytest.raises(ValueError):
         cuda_lin.gj_inverse(K)  # not contiguous
     with pytest.raises(ValueError):

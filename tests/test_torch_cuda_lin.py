@@ -7,8 +7,9 @@ them), on the cases of that file plus a batch of 3 different instances. The
 Pallas gj/admm kernels are single-instance, so the JAX side loops over the
 batch. Everything compares at float64, where both sides carry out the same
 elimination / factorization steps in a different association order
-(the Pallas B1 multiplies by 1/d where the plain version divides by d, and
-pads rows with identity; the plain B2 / B3 eliminate in place, scale the
+(the plain B1 updates the trailing columns step by step where the Pallas
+kernel sums over the finished ones, and the Pallas kernel pads rows with
+identity; the plain B2 / B3 eliminate in place, scale the
 pivot row by 1/pivot where the Pallas kernels divide the factors by the
 pivot, and B3 leaves the columns left of the pivot alone), so they agree to
 rounding amplified by the conditioning (cond <= 1e3 here): rtol 1e-9,
@@ -183,6 +184,63 @@ def test_gj_tile_sizes_match_the_cuda_source():
                                           32 * const[kind + "C"])
         assert 32 % const[kind + "W"] == 0 and const[kind + "W"] % const["Bufs"] == 0
     assert int(re.search(r"kMaxSmem = (\d+);", src).group(1)) == cuda_lin.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("n, m, dtype, expected", [
+    # float32 within the register tile: K^-1 and A in registers, no dynamic smem
+    (120, 200, torch.float32, (True, 0)),
+    (128, 208, torch.float32, (True, 0)),
+    (1, 1, torch.float32, (True, 0)),
+    # beyond the tile, and every float64 QP: K^-1, A and eleven vectors in
+    # shared memory
+    (129, 200, torch.float32, (False, 4 * (129 * 129 + 200 * 129 + 4 * 129 + 7 * 200))),
+    (120, 209, torch.float32, (False, 4 * (120 * 120 + 209 * 120 + 4 * 120 + 7 * 209))),
+    (13, 21, torch.float64, (False, 8 * (13 * 13 + 21 * 13 + 4 * 13 + 7 * 21))),
+])
+def test_admm_plan_picks_tile_or_shared_memory(n, m, dtype, expected):
+    assert cuda_lin.admm_plan(n, m, dtype) == expected
+
+
+@pytest.mark.parametrize("n, m, dtype", [
+    (120, 200, torch.float64),  # the MPC's QP at float64: 322 KB of operands
+    (200, 240, torch.float32), (0, 5, torch.float32), (5, 0, torch.float32),
+])
+def test_admm_plan_refuses_what_no_kernel_takes(n, m, dtype):
+    with pytest.raises(ValueError):
+        cuda_lin.admm_plan(n, m, dtype)
+
+
+def test_admm_tile_sizes_match_the_cuda_source():
+    """ADMM_TILE repeats the tile constants of csrc/lin_kernels.cu: A's rows
+    are warps * rows per thread, the columns 32 * chunks per thread, and
+    K^-1's rows cover the columns."""
+    src = cuda_lin.SOURCE.read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int kAdmm(\w+) = (\d+);", src)}
+    assert cuda_lin.ADMM_TILE == (const["W"] * const["RA"], 32 * const["C"])
+    assert const["W"] * const["RK"] >= 32 * const["C"]
+    assert const["RA"] <= 16 and const["PartLd"] >= const["W"] and const["PartLd"] % 4 == 0
+
+
+@pytest.mark.parametrize("n", [1, 7, 30])
+def test_chol_inverse_base_writes_into_a_strided_view(n):
+    """With ``out`` the result lands in a block of a larger matrix, zeros above
+    the diagonal included, and nothing around the block is touched; K may be a
+    block of a larger matrix too."""
+    rng = np.random.default_rng(n)
+    K = torch.tensor(_random_spd(rng, 3, n))
+    parent = torch.full((3, 2 * n + 1, 2 * n + 2), 5.0, dtype=torch.float64)
+    block = (slice(None), slice(n, 2 * n), slice(1, n + 1))
+    parent[block] = K
+    target = torch.full((3, 2 * n + 1, 2 * n + 2), 7.0, dtype=torch.float64)
+    out = cuda_lin.chol_inverse_base(parent[block], out=target[block])
+    assert out.data_ptr() == target[block].data_ptr()
+    assert torch.equal(target[block], cuda_lin.chol_inverse_base(K))
+    assert torch.all(torch.triu(target[block], 1) == 0)
+    assert int((target == 7.0).sum()) == target.numel() - K.numel()
+    with pytest.raises(ValueError):
+        cuda_lin.chol_inverse_base(K, out=torch.empty((3, n, n + 1), dtype=torch.float64))
+    with pytest.raises(ValueError):
+        cuda_lin.chol_inverse_base(K, out=torch.empty((3, n, n), dtype=torch.float32))
 
 
 @pytest.mark.parametrize("b", [1, 3])

@@ -5,6 +5,8 @@
   ends in ``lin._chol_inv_base`` and the port's in the plain version of
   kernel B1. Same recursion, same base-case algorithm: the two agree to
   rounding amplified by cond(K) <= 1e4 (rtol 1e-9, atol 1e-12).
+  The recursion works on views of K and W and copies nothing; it is also held
+  to the same recursion written with copies and concatenations (rtol 1e-13).
 * ``solve_qp``, batch-first, against the JAX ``solve_batch`` (vmap) on the
   random QPs of tests/test_qp.py, in three configurations: the matmul
   inverse; the matmul inverse with ``polish_kernel`` (the JAX Pallas
@@ -26,6 +28,7 @@ from g1_locomotion_tpu.ops import lin as jlin
 from g1_locomotion_tpu.ops import pallas_lin
 from g1_locomotion_tpu.ops import qp as jqp
 from g1_locomotion_tpu_torch import convert
+from g1_locomotion_tpu_torch.ops import cuda_lin as tcuda_lin
 from g1_locomotion_tpu_torch.ops import lin as tlin
 from g1_locomotion_tpu_torch.ops import qp as tqp
 
@@ -62,6 +65,37 @@ def test_chol_and_spd_inverse_match_jax(inverses, n):
     np.testing.assert_allclose(Ki.numpy(), Ki_jax, rtol=1e-9, atol=1e-12)
     b = torch.ones((3, n), dtype=torch.float64)
     np.testing.assert_allclose(tlin.spd_solve(Kt, b).numpy(), (Ki @ b[..., None])[..., 0].numpy())
+
+
+def _chol_inverse_with_copies(K):
+    """The recursion as it was before the base case took strided blocks: every
+    block made contiguous, W put together with three concatenations a level."""
+    n = K.shape[-1]
+    if n <= tlin._BASE:
+        return tcuda_lin.chol_inverse_base(K.contiguous())
+    h = n // 2
+    W1 = _chol_inverse_with_copies(K[..., :h, :h])
+    L21 = K[..., h:, :h] @ W1.mT
+    W2 = _chol_inverse_with_copies(K[..., h:, h:] - L21 @ L21.mT)
+    top = torch.cat([W1, K.new_zeros(K.shape[:-2] + (h, n - h))], dim=-1)
+    return torch.cat([top, torch.cat([-(W2 @ (L21 @ W1)), W2], dim=-1)], dim=-2)
+
+
+@pytest.mark.parametrize("n", [120, 200])
+def test_chol_inverse_without_copies_equals_the_recursion_with_copies(inverses, n):
+    """The copy-free recursion does the same products on views of K and W: it
+    agrees with the concatenating one to rtol 1e-13 (a strided operand may take
+    another BLAS path, so not bit for bit; atol 1e-13 of the largest entry
+    for entries that are sums near zero) and has exact zeros above the
+    diagonal; a batch of two leading dimensions gives the same."""
+    K = torch.tensor(inverses[n][0])
+    W, W_old = tlin.chol_inverse(K), _chol_inverse_with_copies(K)
+    assert W.is_contiguous() and W.shape == K.shape
+    np.testing.assert_allclose(W.numpy(), W_old.numpy(), rtol=1e-13,
+                               atol=1e-13 * float(W_old.abs().max()))
+    assert torch.all(torch.triu(W, 1) == 0)
+    K4 = torch.stack([K, K.flip(0)])  # (2, 3, n, n)
+    assert torch.equal(tlin.chol_inverse(K4)[1], W.flip(0))
 
 
 def _random_qp(rng, n=20, m=30, eq_rows=4):
