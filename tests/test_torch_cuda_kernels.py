@@ -210,3 +210,92 @@ def test_slice_float64_on_card_matches_cpu(cuda):
     assert cuda_lin.launch_counts()["chol_inverse_base"] > before
     on_cpu = solve(torch.device("cpu"))
     torch.testing.assert_close(on_card.u0.cpu(), on_cpu.u0, rtol=0, atol=1e-6)
+
+
+# The WBID tick's shapes (nx = 41 variables, m = 80 rows): B1 on the blocks
+# the recursion of ops/lin.py hands it at B = 2048 (41 -> 20 | 21, 80 -> 40 ->
+# 20), K and W both views of their parents; B2 on K and Hr (41); B3 on the
+# polish system (80); B4 at 41 x 80 for the serving tick's 25 iterations.
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("parent, n, off", [(41, 20, 0), (41, 21, 20), (80, 20, 0),
+                                            (80, 20, 20), (80, 20, 60)])
+def test_chol_inverse_base_at_wbid_blocks(cuda, dtype, parent, n, off):
+    K = torch.tensor(_random_spd(parent + off, 2048, parent), dtype=dtype, device=cuda)
+    W = torch.zeros_like(K)
+    block = (slice(None), slice(off, off + n), slice(off, off + n))
+    out = _counted("chol_inverse_base", lambda: cuda_lin.chol_inverse_base(K[block],
+                                                                           out=W[block]))
+    assert out.data_ptr() == W[block].data_ptr()
+    torch.testing.assert_close(out, cuda_lin.chol_inverse_base_ref(K[block].contiguous()),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    W[block] = 0
+    assert not W.any()  # nothing outside its block
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gj_at_wbid_shapes(cuda, dtype):
+    K = torch.tensor(_random_spd(41, 1, 41, cond=1e2), dtype=dtype, device=cuda)
+    Ki = _counted("gj_inverse", lambda: cuda_lin.gj_inverse(K))
+    torch.testing.assert_close(Ki, cuda_lin.gj_inverse_ref(K), rtol=TOL[dtype], atol=TOL[dtype])
+    S = torch.tensor(_random_spd(80, 1, 80, cond=1e2), dtype=dtype, device=cuda)
+    rhs = torch.tensor(np.random.default_rng(80).standard_normal((1, 80)), dtype=dtype,
+                       device=cuda)
+    x = _counted("gj_solve", lambda: cuda_lin.gj_solve(S, rhs))
+    torch.testing.assert_close(x, cuda_lin.gj_solve_ref(S, rhs), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("num", [0, 25])
+def test_admm_iterate_at_wbid_shape(cuda, dtype, num):
+    args = _admm_tensors(cuda, dtype, 41, 80, 1)
+    out = _counted("admm_iterate", lambda: cuda_lin.admm_iterate(*args, num, SIGMA, ALPHA))
+    ref = cuda_lin.admm_iterate_ref(*args, num, SIGMA, ALPHA)
+    for o, r in zip(out, ref):
+        scale = float(r.abs().max())
+        torch.testing.assert_close(o, r, rtol=TOL[dtype], atol=TOL[dtype] * max(scale, 1.0))
+
+
+@pytest.mark.gpu
+def test_wbid_tick_float64_on_card_matches_cpu(cuda):
+    """The batched WBID tick (default WBIDConfig) at float64: kernel B1 on the
+    card against the plain path on the CPU, forces and torques to 1e-6 (the
+    CPU test tolerance vs JAX), 18 B1 launches."""
+    from g1_locomotion_tpu_torch.engine.state import q_init_standing
+    from g1_locomotion_tpu_torch.models import robot as rb
+    from g1_locomotion_tpu_torch.wbid import solver as ws
+    from g1_locomotion_tpu_torch.wbid.stack import StackIndices
+    from g1_locomotion_tpu_torch.wbid.tasks import WBIDReferences, default_gains
+
+    def tick(device):
+        model = rb.load_robot("g1_23dof", device=device, dtype=torch.float64)
+        idx = StackIndices.from_model(model)
+        q = q_init_standing(model, 3)
+        X = rb.fk(model, q)
+        feet = [rb.frame_pose(model, X, f) for f in idx.feet]
+        p, R = torch.stack([P.p for P in feet], 1), torch.stack([P.R for P in feet], 1)
+        active = torch.tensor([[1.0, 1.0], [0.0, 1.0], [1.0, 0.0]], dtype=torch.float64,
+                              device=device)
+        on = active.repeat_interleave(2, dim=1)
+        fz = float(model.total_mass) * 9.80665 * on / on.sum(dim=1, keepdim=True)
+        z = q.new_zeros((3, 3))
+        refs = WBIDReferences(
+            com_pos=rb.com_position(model, X), com_vel=z, com_acc=z, base_R=X.R[:, 0],
+            base_angvel=z, base_angacc=z, posture_q=q[:, 7:], contact_pos=p, contact_R=R,
+            swing_pos=p + 0.02 * (1 - active)[..., None], swing_vel=q.new_zeros((3, 2, 3)),
+            swing_acc=q.new_zeros((3, 2, 3)), swing_R=R,
+            f_des=torch.stack([torch.zeros_like(fz), torch.zeros_like(fz), fz], -1),
+            contact_active=active, angmom_L=z, angmom_Ldot=z)
+        gains = default_gains(device=device, dtype=torch.float64)
+        return ws.solve(model, idx, ws.WBIDConfig(), gains, q, q.new_zeros((3, model.nv)), refs)
+
+    before = cuda_lin.launch_counts()["chol_inverse_base"]
+    on_card = tick(cuda)
+    torch.cuda.synchronize()
+    assert cuda_lin.launch_counts()["chol_inverse_base"] == before + 18
+    on_cpu = tick(torch.device("cpu"))
+    torch.testing.assert_close(on_card.forces.cpu(), on_cpu.forces, rtol=0, atol=1e-6)
+    torch.testing.assert_close(on_card.tau.cpu(), on_cpu.tau, rtol=0, atol=1e-6)
