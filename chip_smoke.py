@@ -36,30 +36,53 @@ Phases, each of which must pass:
    default ``WBIDConfig`` (kernel B1), a seeded mix of double support and
    left / right swing; the invariants on every instance; the first 256
    against the plain-version path;
-4. timings (run after phase 6) with CUDA events (not counted as main-path
+7. serving period: a data-dependent chain of 25 control periods (1.0 s: the
+   stand, the first double support, the first swing; each an MPC solve, 40
+   WBID ticks and 40 plant steps) from ``init_state`` in the serving
+   configuration of ``tools/bench_tick_p99.py`` (``polish_kernel`` on both
+   QPs, ``fast_stack``), ``default_scenario``, B = 1: kernels B2, B3, B4
+   at exactly 123 / 122 / 82 launches per period; the period invariants on
+   every tick; one period against the plain-version path;
+8. batched cascade: one period of the default ``EngineConfig`` at B = 2048
+   (``tools/bench_cascade.py``): B1 at exactly 748 launches (28 for the MPC
+   solve, 18 per tick); the invariants on every instance; the first 256
+   instances against the plain-version path;
+9. golden prefix: ``walking_config()`` with ``walking_scenario`` at float64,
+   the first 20 periods (800 ticks, through the first swing onset) against
+   the first 800 rows of ``tests/goldens/walk_golden.npz``: contact flags
+   equal, CoM within 1e-4 m, tau within 5e-2 N m, forces within 0.5 N
+   (``tests/test_golden.py``'s tolerances); no kernel launches;
+4. timings (run after phase 9) with CUDA events (not counted as main-path
    launches): each kernel at each shape its paths give it, its plain version
    and, where one PyTorch call computes the same function, that call, in
    turns; beside them the card bound (bytes over the memory rate, operations
    over the fp32 rate) and, for the kernels that a serving path launches as
    one block, the one-SM bound; B4's fixed part and its slope per iteration;
    the MPC's throughput and serving latency, the WBID serving tick's p50 /
-   p99 and the batched tick's ticks/s. Kernel times are device times: the
+   p99 and the batched tick's ticks/s; the serving period's wall time (p50,
+   max, per tick; from phase 7's chain) and the batched cascade's period
+   (CUDA events) and ticks/s. Kernel times are device times: the
    launches queue up behind a kernel that keeps the card busy meanwhile, so
    a wrapper that takes the host longer than its kernel runs does not show.
 
 The WBID invariants: no NaN, pri_res < 0.05, |tau| <= tau_max + 1e-4, in
 double support sum fz within 5% of m g, on a swinging foot's contacts
-|f| <= SWING_F_MAX_N, |base_wrench_res| <= BASE_RES_MAX.
+|f| <= SWING_F_MAX_N, |base_wrench_res| <= BASE_RES_MAX. The period
+invariants (phases 7 and 8): no NaN, |tau| <= tau_max + 1e-4, and MPC and
+WBID pri_res, the force on a swinging foot's contacts, the deviation of the
+summed normal force from m g in double support and the base's tilt within
+PERIOD_BOUNDS (twice the JAX package's maxima, tools/period_invariant_bounds.py).
 
-Launch counters are zeroed right before each path (phases 2, 3, 5, 6) and
+Launch counters are zeroed right before each path (phases 2, 3, 5-9) and
 read right after it; every kernel must have launched as often as that path
 calls it. The line before the last is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero, and so does a machine without a CUDA device.
 ``--profile`` adds ``torch.profiler`` passes over 50 MPC serving solves, 3
-MPC throughput batches, the SPD inverse alone, 50 WBID serving ticks and 3
-batched WBID ticks (device busy share, device time by kernel and by kind);
-they are measurements, not checks.
+MPC throughput batches, the SPD inverse alone, 50 WBID serving ticks, 3
+batched WBID ticks, one serving period and one batched period (device busy
+share, device time by kernel and by kind); they are measurements, not
+checks.
 """
 
 from __future__ import annotations
@@ -120,7 +143,7 @@ FZ_RTOL = 0.05             # double support: sum fz within 5% of m g
 SWING_F_MAX_N = {5: 2 * 3.909279257641174e-05, 6: 2 * 0.00016369271907024086}  # [N]
 BASE_RES_MAX = {5: 2 * 0.005706787109375, 6: 2 * 0.007476806640625}  # [N, N m]
 WBID_CMP_MAX = 1.0         # kernel path vs plain path: |df| [N], |dtau| [N m]
-TICK_SAMPLES = 1000        # timed serving ticks: 10 samples beyond the p99
+TICK_SAMPLES = 200         # timed serving ticks: 2 samples beyond the p99
 TICK_BATCHES = 5           # timed batched ticks
 PROFILE_TICKS = 50         # serving ticks under torch.profiler (--profile)
 # Launches per path: the serving tick runs B2 for both ADMM segments' K and
@@ -131,6 +154,42 @@ WBID_SERVING_LAUNCHES = {"chol_inverse_base": 0, "gj_inverse": 3 * WBID_TICKS,
                          "gj_solve": 3 * WBID_TICKS, "admm_iterate": 2 * WBID_TICKS}
 WBID_BATCHED_LAUNCHES = {"chol_inverse_base": 18, "gj_inverse": 0, "gj_solve": 0,
                          "admm_iterate": 0}
+# The control period (phases 7-9; engine/tick.py's ControlLoop).
+SERVING_PERIODS = 25       # 1.0 s: the stand, the first double support, the first swing
+PERIOD_TICKS = 40          # WBID ticks (and plant steps) per period
+B_CASCADE = 2048           # the batched cascade (tools/bench_cascade.py's size)
+GOLDEN_PERIODS = 20        # 0.8 s of the golden walk, through the first swing onset
+GOLDEN_TOL = {"com": 1e-4, "tau": 5e-2, "forces": 5e-1}  # tests/test_golden.py:55-57
+CASCADE_REPS = 2           # timed batched periods
+# Launches per period: the serving MPC solve B2 3, B3 2, B4 2 and each tick
+# B2 3, B3 3, B4 2; the default configuration's MPC solve B1 28 and each
+# tick B1 18.
+SERVING_PERIOD_LAUNCHES = {
+    "chol_inverse_base": 0, "gj_inverse": (3 + PERIOD_TICKS * 3) * SERVING_PERIODS,
+    "gj_solve": (2 + PERIOD_TICKS * 3) * SERVING_PERIODS,
+    "admm_iterate": (2 + PERIOD_TICKS * 2) * SERVING_PERIODS}
+CASCADE_LAUNCHES = {"chol_inverse_base": 28 + PERIOD_TICKS * 18, "gj_inverse": 0,
+                    "gj_solve": 0, "admm_iterate": 0}
+# Per phase (7 serving, 8 batched), twice the largest value the JAX package
+# gives at float32 on the CPU for the same chain (tools/
+# period_invariant_bounds.py): MPC and WBID pri_res, a swinging foot's
+# contact force [N], the double-support |sum fz - m g| [N] (the first ticks
+# lower the CoM from the standing 0.628 m to the 0.598 m target, so the MPC
+# plans ~40% less than m g there), the base's tilt [rad]. Where the JAX
+# maximum is exactly 0 (no row violated at all; no foot swinging in the one
+# standing period of phase 8), the bound is that of the earlier phases
+# instead: pri_res < 0.05 (phases 2 and 3), swing |f| <= SWING_F_MAX_N[5].
+PERIOD_BOUNDS = {
+    7: {"mpc_pri_res": 2 * 0.00390625, "wbid_pri_res": 2 * 0.022430419921875,
+        "f_swing_N": 2 * 5.1355080358916894e-05, "fz_dev_N": 2 * 132.95550537109375,
+        "tilt_rad": 2 * 0.07162471115589142},
+    8: {"mpc_pri_res": 0.05, "wbid_pri_res": 2 * 0.013153076171875,
+        "f_swing_N": SWING_F_MAX_N[5], "fz_dev_N": 2 * 132.9462890625,
+        "tilt_rad": 2 * 0.010178102180361748},
+}
+# A period through the kernels against the same period through their plain
+# versions: |df| [N], |dtau| [N m] over the ticks, |dq| at the period's end.
+PERIOD_CMP_MAX = {"df": 1.0, "dtau": 1.0, "dq": 1e-3}
 REPLACES = {
     "chol_inverse_base": "g1_locomotion_tpu/ops/pallas_lin.py:118",
     "gj_inverse": "g1_locomotion_tpu/ops/pallas_lin.py:271",
@@ -310,6 +369,93 @@ def merge_worst(a: dict, b: dict) -> dict:
     return out
 
 
+def engine_configs():
+    """(serving, batched) EngineConfig with the configuration logged per
+    tick (``log_q``, for the tilt): the serving period of
+    tools/bench_tick_p99.py (``polish_kernel`` on both QPs, ``fast_stack``)
+    and the default EngineConfig of tools/bench_cascade.py."""
+    from g1_locomotion_tpu_torch.engine.tick import EngineConfig
+
+    base = EngineConfig(log_q=True)
+    serving = base._replace(
+        mpc=base.mpc._replace(qp=base.mpc.qp._replace(polish_kernel=True)),
+        wbid=base.wbid._replace(qp=base.wbid.qp._replace(polish_kernel=True), fast_stack=True))
+    return serving, base
+
+
+def period_maxima(log: dict, tau_max: np.ndarray, mg: float) -> dict:
+    """The largest value of each period invariant over a log's instances and
+    ticks (numpy arrays, ticks and instances in the leading axes, as
+    TickLog's fields): non-finite values (a count), MPC and WBID pri_res,
+    the force on a swinging foot's contacts (the MPC's contact flag 0), the
+    double-support |sum fz - m g|, the base's tilt from upright (from the
+    logged q), |tau| beyond tau_max. tools/period_invariant_bounds.py gives
+    it the JAX package's logs."""
+    non_finite = sum(int((~np.isfinite(log[k])).sum())
+                     for k in ("com", "tau", "forces", "q", "mpc_pri_res", "wbid_pri_res"))
+    contact, forces = log["contact"], log["forces"]
+    swing = contact < 0.5
+    f_swing = float(np.abs(forces[swing]).max()) if swing.any() else 0.0
+    double = contact.min(axis=-1) > 0.5
+    fz_dev = np.abs(forces[..., 2].sum(axis=-1) - mg)[double]
+    quat = log["q"][..., 3:7]
+    r22 = 1.0 - 2.0 * (quat[..., 1] ** 2 + quat[..., 2] ** 2)
+    return {"non_finite": non_finite, "mpc_pri_res": float(log["mpc_pri_res"].max()),
+            "wbid_pri_res": float(log["wbid_pri_res"].max()), "f_swing_N": f_swing,
+            "fz_dev_N": float(fz_dev.max()) if fz_dev.size else 0.0,
+            "tilt_rad": float(np.arccos(np.clip(r22, -1.0, 1.0)).max()),
+            "tau_over": float((np.abs(log["tau"]) - tau_max).max())}
+
+
+def log_numpy(log) -> dict:
+    return {k: v.detach().cpu().double().numpy() for k, v in log._asdict().items()}
+
+
+def check_period(label: str, maxima: dict, phase: int) -> None:
+    bounds = PERIOD_BOUNDS[phase]
+    bad = [k for k, b in bounds.items() if not maxima[k] <= b]
+    bad += [k for k in ("non_finite",) if maxima[k]] + (
+        ["tau_over"] if maxima["tau_over"] > 1e-4 else [])
+    print(f"{label}: " + ("invariants ok" if not bad else f"FAILED {bad}") + f"; maxima {maxima}"
+          f" (bounds: no NaN, |tau| <= tau_max + 1e-4, "
+          + ", ".join(f"{k} <= {b:.3e}" for k, b in bounds.items()) + ")")
+    if bad:
+        raise AssertionError(f"{label}: period invariants violated: {bad}")
+
+
+def compare_periods(label: str, kernel, plain) -> None:
+    """A period through the kernels against the same period through their
+    plain versions: ((state, log), (state, log)), within PERIOD_CMP_MAX."""
+    torch.cuda.synchronize()
+    (ks, kl), (ps, pl) = kernel, plain
+    d = {"df": float((kl.forces - pl.forces).abs().amax()),
+         "dtau": float((kl.tau - pl.tau).abs().amax()),
+         "dq": float((ks.q - ps.q).abs().amax())}
+    print(f"{label}: kernel path vs plain path |df| max {d['df']:.3e} N, |dtau| max "
+          f"{d['dtau']:.3e} N m, |dq| at the period's end {d['dq']:.3e} (bounds {PERIOD_CMP_MAX})")
+    if not all(d[k] <= PERIOD_CMP_MAX[k] for k in d):
+        raise AssertionError(f"{label}: the kernel path differs from the plain path")
+
+
+def check_golden(log, periods: int) -> dict:
+    """The walk's log (B = 1) against the first rows of the golden: contact
+    flags equal, CoM, tau and forces within GOLDEN_TOL. Returns the largest
+    deviations."""
+    from pathlib import Path
+
+    n = periods * PERIOD_TICKS
+    with np.load(Path(__file__).resolve().parent / "tests" / "goldens" / "walk_golden.npz") as z:
+        golden = {k: z[k][:n] for k in ("com", "tau", "forces", "contact")}
+    got = {k: v.reshape((n,) + golden[k].shape[1:])
+           for k, v in log_numpy(log).items() if k in golden}
+    if not np.array_equal(got["contact"], golden["contact"]):
+        raise AssertionError("phase 9: the contact sequence differs from the golden's")
+    dev = {k: float(np.abs(got[k] - golden[k]).max()) for k in GOLDEN_TOL}
+    if not all(dev[k] <= GOLDEN_TOL[k] for k in dev):
+        raise AssertionError(f"phase 9: deviations {dev} beyond {GOLDEN_TOL}")
+    return dev
+
+
 def serving_chain(solver, model, idx, device, dtype, ticks=WBID_TICKS, record=None):
     """The serving tick's data-dependent chain from the standing pose: each
     tick's qddot feeds v += qddot dt, q = integrate_q(q, v, dt); the first
@@ -354,9 +500,11 @@ def compare_paths(label: str, kernel_sol, plain_sol) -> None:
 
 
 def first_per_shape(recorded):
-    """One B = 1 instance of the first recorded call of each input shape."""
+    """One B = 1 instance of the first recorded call of each instance shape
+    and set of scalar arguments (for B4: each iteration count)."""
     seen, out = set(), []
-    for key, args, _ in recorded:
+    for _, args, _ in recorded:
+        key = tuple(tuple(a.shape[1:]) if isinstance(a, torch.Tensor) else a for a in args)
         if key not in seen:
             seen.add(key)
             out.append([a[:1].contiguous() if isinstance(a, torch.Tensor) else a for a in args])
@@ -765,8 +913,9 @@ def compare_kernels(calls, gen_device) -> dict:
         x, x_ref = cuda_lin.gj_solve(S, b), cuda_lin.gj_solve_ref(S, b)
         torch.cuda.synchronize()
 
-        def resid(v):
-            return float(((S @ v[..., None])[..., 0] - b).abs().amax() / b.abs().amax())
+        def resid(v):  # relative to |b| (0 where b = 0 and so is the solution)
+            return float(((S @ v[..., None])[..., 0] - b).abs().amax()
+                         / b.abs().amax().clamp_min(1e-30))
 
         res, res_ref = resid(x), resid(x_ref)
         note("gj_solve", float((x - x_ref).abs().max()))
@@ -864,16 +1013,25 @@ def main(argv) -> None:
     wsrv_cfg, wbat_cfg = wbid_configs()
     wsrv, wbat = WBIDSolver(wsrv_cfg, robot, gains), WBIDSolver(wbat_cfg, robot, gains)
     wq, wv, wrefs = wbid_batch(wbat.model, wbat.idx, B_WBID, device, dtype)
+    from g1_locomotion_tpu_torch.engine import tick as eng
+
+    esrv_cfg, ebat_cfg = engine_configs()
+    esrv, ebat = eng.ControlLoop(robot, esrv_cfg), eng.ControlLoop(robot, ebat_cfg)
+    eparams = eng.default_scenario(device=device, dtype=dtype)
+    tau_max, mg = robot.tau_max.double().cpu().numpy(), float(robot.total_mass) * 9.80665
 
     # Phase 1: record each kernel's main-path inputs (both MPC paths, one
-    # serving WBID tick, the batched WBID tick), then hold each kernel
-    # against its plain version on them.
+    # serving WBID tick, the batched WBID tick, one serving period, one
+    # batched period), then hold each kernel against its plain version on
+    # them.
     calls = {}
     with recording_kernels(calls):
         run(thr, inp)
         run(srv, inp, slice(0, B_RECORD))
         serving_chain(wsrv, wsrv.model, wsrv.idx, device, dtype, ticks=1)
         wbat(wq, wv, wrefs)
+        esrv.period(eng.init_state(esrv.model, esrv_cfg, 1, dtype), eparams)
+        ebat.period(eng.init_state(ebat.model, ebat_cfg, B_CASCADE, dtype), eparams)
     torch.cuda.synchronize()
     errs = compare_kernels(calls, device)
     print("phase 1 kernels vs plain versions: ok")
@@ -956,12 +1114,88 @@ def main(argv) -> None:
     compare_paths(f"phase 6 WBID batched, first {B_WBID_COMPARE} instances",
                   take(wsol, B_WBID_COMPARE), wref)
 
+    # Phase 7: the serving period, a data-dependent chain of periods from
+    # init_state (kernels B2, B3, B4), each period timed on the host clock.
+    state = eng.init_state(esrv.model, esrv_cfg, 1, dtype)
+    cuda_lin.reset_launch_counts()
+    period_ms, logs, mid_state = [], [], None
+    t0 = time.perf_counter()
+    for k in range(SERVING_PERIODS):
+        if k == SERVING_PERIODS - 6:
+            mid_state = state  # the first swing's onset, for the comparison below
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, log = esrv.period(state, eparams)
+        torch.cuda.synchronize()
+        period_ms.append((time.perf_counter() - t1) * 1e3)
+        logs.append(log_numpy(log))
+    psrv_launches = cuda_lin.launch_counts()
+    print(f"phase 7 serving period: {SERVING_PERIODS} periods ({SERVING_PERIODS * PERIOD_TICKS} "
+          f"ticks) in {time.perf_counter() - t0:.3f} s (host clock); launches {psrv_launches}")
+    if psrv_launches != SERVING_PERIOD_LAUNCHES:
+        raise AssertionError(f"serving period launched {psrv_launches}, "
+                             f"expected {SERVING_PERIOD_LAUNCHES}")
+    chain_log = {k: np.concatenate([lg[k] for lg in logs], axis=1) for k in logs[0]}
+    check_period(f"phase 7 serving ({SERVING_PERIODS}-period chain)",
+                 period_maxima(chain_log, tau_max, mg), phase=7)
+    swung = chain_log["contact"][..., 0].min()
+    if swung != 0.0:
+        raise AssertionError("phase 7: the chain never lifted the left foot")
+    kernel_period = esrv.period(mid_state, eparams)
+    with plain_kernels():
+        plain_period = esrv.period(mid_state, eparams)
+    compare_periods(f"phase 7 serving period {SERVING_PERIODS - 6} (the first swing)",
+                    kernel_period, plain_period)
+
+    # Phase 8: the batched cascade, one period at B = 2048 (kernel B1).
+    bstate = eng.init_state(ebat.model, ebat_cfg, B_CASCADE, dtype)
+    cuda_lin.reset_launch_counts()
+    t0 = time.perf_counter()
+    bfin, blog = ebat.period(bstate, eparams)
+    torch.cuda.synchronize()
+    pbat_launches = cuda_lin.launch_counts()
+    print(f"phase 8 batched cascade: B={B_CASCADE} period in {time.perf_counter() - t0:.3f} s "
+          f"(host clock, first call); launches {pbat_launches}")
+    if pbat_launches != CASCADE_LAUNCHES:
+        raise AssertionError(f"batched cascade launched {pbat_launches}, "
+                             f"expected {CASCADE_LAUNCHES}")
+    check_period(f"phase 8 batched cascade (B={B_CASCADE})",
+                 period_maxima(log_numpy(blog), tau_max, mg), phase=8)
+    with plain_kernels():
+        pref = ebat.period(take(bstate, B_COMPARE), eparams)
+    compare_periods(f"phase 8 batched cascade, first {B_COMPARE} instances",
+                    (take(bfin, B_COMPARE), take(blog, B_COMPARE)), pref)
+
+    # Phase 9: the validated walk at float64, the golden's first periods (no
+    # kernel on this path).
+    robot64 = load_robot("g1_23dof", device=device, dtype=torch.float64)
+    walk = eng.ControlLoop(robot64, eng.walking_config())
+    wstate = eng.init_state(walk.model, walk.cfg, 1, torch.float64)
+    wparams = eng.walking_scenario(device=device, dtype=torch.float64, n_steps=8.0,
+                                   v_cmd=(0.1, 0.0))
+    cuda_lin.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, glog = walk.rollout(wstate, wparams, GOLDEN_PERIODS)
+    torch.cuda.synchronize()
+    walk_launches = cuda_lin.launch_counts()
+    walk_s = time.perf_counter() - t0
+    if any(walk_launches.values()):
+        raise AssertionError(f"the walk launched {walk_launches}, expected no kernel")
+    dev = check_golden(glog, GOLDEN_PERIODS)
+    print(f"phase 9 golden prefix: {GOLDEN_PERIODS} periods ({GOLDEN_PERIODS * PERIOD_TICKS} "
+          f"ticks) at float64 in {walk_s:.3f} s; launches {walk_launches}; contacts equal; "
+          f"max |dCoM| {dev['com']:.3e} m, |dtau| {dev['tau']:.3e} N m, |df| "
+          f"{dev['forces']:.3e} N (bounds {GOLDEN_TOL})")
+
     paths = {"MPC throughput": thr_launches, "MPC serving": srv_launches,
-             "WBID serving": wsrv_launches, "WBID batched": wbat_launches}
+             "WBID serving": wsrv_launches, "WBID batched": wbat_launches,
+             "serving period": psrv_launches, "batched cascade": pbat_launches}
     launches = {name: sum(p[name] for p in paths.values()) for name in REPLACES}
     print(f"main-path launches: {launches} (MPC throughput batch {thr_launches}; "
           f"{SERVING_CHAIN}-solve MPC serving chain {srv_launches}; {WBID_TICKS}-tick WBID "
-          f"serving chain {wsrv_launches}; B={B_WBID} WBID batched tick {wbat_launches})")
+          f"serving chain {wsrv_launches}; B={B_WBID} WBID batched tick {wbat_launches}; "
+          f"{SERVING_PERIODS}-period serving chain {psrv_launches}; B={B_CASCADE} batched "
+          f"period {pbat_launches})")
     for name, count in launches.items():
         if count == 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
@@ -1007,6 +1241,18 @@ def main(argv) -> None:
           f"(B={B_WBID} tick {median(tick_ms):.3f} ms median, range {tick_ms[0]:.3f}-"
           f"{tick_ms[-1]:.3f} ms; {TICK_BATCHES} ticks, CUDA events)")
 
+    srv_p = sorted(period_ms)
+    print(f"[{gpu}] serving period (B=1, {PERIOD_TICKS} ticks): p50 {median(srv_p):.3f} ms, "
+          f"max {srv_p[-1]:.3f} ms, min {srv_p[0]:.3f} ms over the {SERVING_PERIODS}-period "
+          f"chain of phase 7; per tick {median(srv_p) / PERIOD_TICKS:.3f} ms at the p50 "
+          f"(host clock, synchronized; {40 / (median(srv_p) / 1e3):.1f} ticks/s)")
+    cas_ms = sorted(cuda_ms(lambda: ebat.period(bstate, eparams), reps=1, warmup=0)
+                    for _ in range(CASCADE_REPS))
+    print(f"[{gpu}] batched cascade (B={B_CASCADE}): period median {median(cas_ms):.3f} ms, "
+          f"range {cas_ms[0]:.3f}-{cas_ms[-1]:.3f} ms ({CASCADE_REPS} periods, CUDA events); "
+          f"{B_CASCADE * PERIOD_TICKS / (median(cas_ms) / 1e3):.1f} ticks/s, "
+          f"{B_CASCADE / (median(cas_ms) / 1e3):.1f} periods/s")
+
     # A batch of SPD matrices of the throughput K's size, for the recursion alone.
     gen = torch.Generator().manual_seed(2)
     M = torch.randn((B_THROUGHPUT, 120, 120), generator=gen).to(device)
@@ -1026,6 +1272,10 @@ def main(argv) -> None:
                      by=op_kind)
         profile_path(f"WBID batched B={B_WBID}", lambda: wbat(wq, wv, wrefs), 3, "tick", gpu,
                      by=op_kind)
+        profile_path("serving period", lambda: esrv.period(mid_state, eparams), 1, "period",
+                     gpu, by=op_kind)
+        profile_path(f"batched cascade B={B_CASCADE}", lambda: ebat.period(bstate, eparams), 1,
+                     "period", gpu, by=op_kind)
 
     # Each kernel beside its plain version, its library call and its bounds.
     # B1 at each block size of the throughput path, widest first, on each
@@ -1055,7 +1305,10 @@ def main(argv) -> None:
         else:
             cases = []
             for args in first_per_shape(calls[name]):
-                cases.append((str(tuple(args[0].shape)), args, lambda args=args: kernel(*args)))
+                label = str(tuple(args[0].shape))
+                if name == "admm_iterate":
+                    label = f"K^-1 {tuple(args[0].shape)}, A {tuple(args[1].shape)}, {args[9]} iterations"
+                cases.append((label, args, lambda args=args: kernel(*args)))
         for label, args, launch in cases:
             lib = library_call(name, args)
             k_all, l_all = [], []

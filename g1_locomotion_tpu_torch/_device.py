@@ -4,6 +4,8 @@ card here."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -15,3 +17,15 @@ def require_cuda() -> torch.device:
             "torch.cuda.is_available() is False"
         )
     return torch.device("cuda", torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _cached(values, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def const(values, like: torch.Tensor) -> torch.Tensor:
+    """A constant tensor (`values`: a number or nested tuples) on `like`'s
+    device and dtype, made once per device and dtype: a call inside a
+    control period copies nothing from the host."""
+    return _cached(values, like.device, like.dtype)

@@ -1,12 +1,14 @@
 """Parameters, models and configs of the JAX package, carried over to this port.
 
-The JAX package's ``SRBDParams``, ``MPCWeights``, ``WBIDGains`` and
-``WBIDReferences`` arrive as mappings (or NamedTuples) of numpy arrays, its
-``RobotModel`` as a mapping of its fields (numpy arrays and the static
-tuples), and its ``MPCConfig`` / ``QPConfig`` / ``WBIDConfig`` as their
-``_asdict()`` dicts; this module turns them into this package's types on a
-given device and dtype. It never imports JAX: callers convert with
-``np.asarray`` first.
+The JAX package's ``SRBDParams``, ``MPCWeights``, ``WBIDGains``,
+``WBIDReferences``, ``GaitConfig``, ``FootstepConfig``, ``ScenarioParams``
+and ``EngineState`` arrive as mappings (or NamedTuples) of numpy arrays,
+its ``RobotModel`` as a mapping of its fields (numpy arrays and the static
+tuples), and its ``MPCConfig`` / ``QPConfig`` / ``WBIDConfig`` /
+``PlantConfig`` / ``EngineConfig`` as their ``_asdict()`` dicts (or the
+NamedTuples); this module turns them into this package's types on a given
+device and dtype, batch-first. It never imports JAX: callers convert with
+``np.asarray`` first (a JAX array converts where numpy reads it).
 """
 
 from __future__ import annotations
@@ -16,6 +18,10 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from g1_locomotion_tpu_torch.engine.plant import PlantConfig
+from g1_locomotion_tpu_torch.engine.tick import EngineConfig, EngineState, ScenarioParams
+from g1_locomotion_tpu_torch.gait.footsteps import FootstepConfig
+from g1_locomotion_tpu_torch.gait.schedule import GaitConfig
 from g1_locomotion_tpu_torch.models.robot import RobotModel
 from g1_locomotion_tpu_torch.models.srbd import SRBDParams
 from g1_locomotion_tpu_torch.mpc.solver import MPCConfig, MPCWeights
@@ -102,3 +108,52 @@ def wbid_config(cfg: Any) -> WBIDConfig:
     if "qp" in fields:
         fields["qp"] = qp_config(fields["qp"])
     return WBIDConfig(**fields)
+
+
+def gait_config(gait: Any, *, device, dtype=torch.float32) -> GaitConfig:
+    """GaitConfig from the reference's fields, each 0-d (shared) or (B,)."""
+    return GaitConfig(**{k: _tensor(v, device=device, dtype=dtype)
+                         for k, v in _fields(gait).items()})
+
+
+def footstep_config(steps: Any, *, device, dtype=torch.float32) -> FootstepConfig:
+    """FootstepConfig from the reference's fields, each 0-d (shared) or (B,)."""
+    return FootstepConfig(**{k: _tensor(v, device=device, dtype=dtype)
+                             for k, v in _fields(steps).items()})
+
+
+def scenario_params(params: Any, *, device, dtype=torch.float32) -> ScenarioParams:
+    """ScenarioParams from the reference's (srbd, mpc_weights, wbid_gains,
+    gait, steps, v_cmd); the first three shared by the batch."""
+    f = _fields(params)
+    like = dict(device=device, dtype=dtype)
+    return ScenarioParams(
+        srbd=srbd_params(f["srbd"], **like), mpc_weights=mpc_weights(f["mpc_weights"], **like),
+        wbid_gains=wbid_gains(f["wbid_gains"], **like), gait=gait_config(f["gait"], **like),
+        steps=footstep_config(f["steps"], **like), v_cmd=_tensor(f["v_cmd"], **like),
+    )
+
+
+def plant_config(cfg: Any) -> PlantConfig:
+    """PlantConfig from the reference's fields; an unknown field raises."""
+    return PlantConfig(**_fields(cfg))
+
+
+def engine_config(cfg: Any) -> EngineConfig:
+    """EngineConfig from the reference's fields, its ``mpc``, ``wbid`` and
+    ``plant`` fields dicts or NamedTuples; an unknown field raises."""
+    fields = dict(_fields(cfg))
+    for name, conv in (("mpc", mpc_config), ("wbid", wbid_config), ("plant", plant_config)):
+        if name in fields:
+            fields[name] = conv(fields[name])
+    return EngineConfig(**fields)
+
+
+def engine_state(state: Any, *, device, dtype=torch.float32) -> EngineState:
+    """EngineState from the reference's fields: one instance (``q`` of shape
+    (nq,)) gains a batch axis of 1, a batched state (``q`` (B, nq)) keeps
+    its own."""
+    f = {k: np.asarray(v) for k, v in _fields(state).items()}
+    single = f["q"].ndim == 1
+    return EngineState(**{k: _tensor(v[None] if single else v, device=device, dtype=dtype)
+                          for k, v in f.items()})

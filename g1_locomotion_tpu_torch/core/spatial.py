@@ -51,7 +51,7 @@ class Transform(NamedTuple):
         return _mv(self.R, v)
 
 
-def transform_identity(*, device=None, dtype=torch.float64) -> Transform:
+def transform_identity(*, device, dtype=torch.float64) -> Transform:
     return Transform(R=torch.eye(3, dtype=dtype, device=device),
                      p=torch.zeros(3, dtype=dtype, device=device))
 

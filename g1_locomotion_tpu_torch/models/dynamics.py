@@ -21,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from g1_locomotion_tpu_torch._device import const
 from g1_locomotion_tpu_torch.core import rotations as rot
 from g1_locomotion_tpu_torch.core.spatial import (
     SpatialInertia,
@@ -85,8 +86,7 @@ def rnea(model: RobotModel, q: torch.Tensor, v: torch.Tensor, a: torch.Tensor,
 
     # Gravity trick: the root accelerates upward at g (a uniform translation,
     # moment-free).
-    a_grav = torch.zeros(6, dtype=q.dtype, device=q.device)
-    a_grav[2] = gravity
+    a_grav = const((0.0, 0.0, float(gravity), 0.0, 0.0, 0.0), q)  # no host copy per call
     Sdot_qd = motion_cross(tw[:, 1:], Sqd)  # (B, nj, 6): v_child x S qd
     A = (a_grav + _mv(Bp, a[:, 0:6]))[:, None, :] + AM @ (S * qdd[..., None] + Sdot_qd)
 

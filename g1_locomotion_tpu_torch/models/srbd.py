@@ -88,7 +88,7 @@ def continuous_matrices(
     dtype, device = r.dtype, r.device
     batch = r.shape[:-2]
     Rz, I_w = _world_inertia(params, yaw, dtype)
-    I_w_inv = torch.linalg.inv(I_w)
+    I_w_inv = torch.linalg.inv_ex(I_w).inverse
     eye3 = torch.eye(3, dtype=dtype, device=device)
 
     A = torch.zeros(batch + (NX, NX), dtype=dtype, device=device)
@@ -113,7 +113,7 @@ def landing_sensitivity(
     d = [dx, dy]: ``omega_dot += I_w^{-1} (d x f_nom_sum)``, linear in d."""
     dtype = f_nom_sum.dtype
     _, I_w = _world_inertia(params, yaw, dtype)
-    I_w_inv = torch.linalg.inv(I_w)
+    I_w_inv = torch.linalg.inv_ex(I_w).inverse
     fx, fy, fz = f_nom_sum[..., 0], f_nom_sum[..., 1], f_nom_sum[..., 2]
     zero = torch.zeros_like(fz)
     M = torch.stack(
@@ -154,7 +154,7 @@ def swing_disturbance(
     dtype = hdot_geom.dtype
     _, I_w = _world_inertia(params, yaw, dtype)
     w = torch.zeros(hdot_geom.shape[:-1] + (NX,), dtype=dtype, device=hdot_geom.device)
-    w[..., 6:9] = -torch.linalg.solve(I_w, params.m_swing * hdot_geom)
+    w[..., 6:9] = -torch.linalg.solve_ex(I_w, params.m_swing * hdot_geom).result
     return w
 
 

@@ -9,9 +9,11 @@ polish -> rollout.
 Contact masking is static-shape: inactive contacts keep their QP columns
 but are boxed to f = 0 by rewritten constraint rows.
 
-Not ported yet (they raise NotImplementedError, see ROADMAP.md):
-``MPCConfig.footstep_opt``, ``hdot_sw`` (the swing-momentum preview) and
-``MPCConfig.roll_moment_max > 0``.
+With ``MPCConfig.footstep_opt`` the upcoming landing's xy offset d is a QP
+decision too (two more variables, scaled by ``d_scale``, and two reach-box
+rows); ``hdot_sw`` adds the swing-limb momentum preview as an affine term of
+the prediction. Not ported (it raises NotImplementedError, see ROADMAP.md):
+``MPCConfig.roll_moment_max > 0``, measured negative in the reference.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
+from g1_locomotion_tpu_torch._device import const
 from g1_locomotion_tpu_torch.models import srbd
 from g1_locomotion_tpu_torch.models.srbd import NC, NU, NX
 from g1_locomotion_tpu_torch.ops import qp as qplib
@@ -39,7 +42,7 @@ class MPCConfig(NamedTuple):
     mu: float = 0.8            # friction coefficient
     fz_min: float = 10.0       # min normal force in stance [N]
     fz_max: float = 1000.0     # max normal force [N]
-    footstep_opt: bool = False  # landing offset as a QP decision (not ported)
+    footstep_opt: bool = False  # landing offset d as a QP decision
     roll_moment_max: float = 0.0  # hard roll-moment cap if > 0 (not ported)
     w_d: float = 300.0         # footstep_opt: penalty on the landing offset
     d_scale: float = 1e-3      # footstep_opt: QP units of the offset
@@ -85,7 +88,7 @@ class MPCSolution(NamedTuple):
     u0: torch.Tensor         # (B, NU) first-step GRFs
     U: torch.Tensor          # (B, N, NU) full force plan (warm-start state)
     x_horizon: torch.Tensor  # (B, N+1, NX) predicted states, row 0 = x0
-    d: torch.Tensor          # (B, 2) landing offset (0: footstep_opt not ported)
+    d: torch.Tensor          # (B, 2) optimized landing offset (0 unless footstep_opt)
     pri_res: torch.Tensor    # (B,)
     dua_res: torch.Tensor    # (B,)
 
@@ -99,24 +102,15 @@ def _constraint_blocks(cfg: MPCConfig, dtype, device):
     degenerate pyramid at fz = 0 stalls ADMM and breaks the polish).
     """
     mu = cfg.mu
-    C_active = torch.tensor(
-        [[1.0, 0.0, -mu], [-1.0, 0.0, -mu], [0.0, 1.0, -mu], [0.0, -1.0, -mu],
-         [0.0, 0.0, 1.0]],
-        dtype=dtype, device=device,
-    )
-    C_inactive = torch.tensor(
-        [[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0], [0.0, 0.0, 0.0],
-         [0.0, 0.0, 0.0]],
-        dtype=dtype, device=device,
-    )
+    like = torch.empty((), dtype=dtype, device=device)
+    C_active = const(((1.0, 0.0, -mu), (-1.0, 0.0, -mu), (0.0, 1.0, -mu), (0.0, -1.0, -mu),
+                      (0.0, 0.0, 1.0)), like)
+    C_inactive = const(((1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 1.0), (0.0, 0.0, 0.0),
+                        (0.0, 0.0, 0.0)), like)
     return C_active, C_inactive
 
 
-def _check_ported(cfg: MPCConfig, hdot_sw) -> None:
-    if cfg.footstep_opt:
-        raise NotImplementedError(f"MPCConfig.footstep_opt {_NOT_PORTED}")
-    if hdot_sw is not None:
-        raise NotImplementedError(f"the hdot_sw swing-momentum preview {_NOT_PORTED}")
+def _check_ported(cfg: MPCConfig) -> None:
     if cfg.roll_moment_max > 0.0:
         raise NotImplementedError(f"MPCConfig.roll_moment_max > 0 {_NOT_PORTED}")
 
@@ -130,13 +124,17 @@ def build_qp(
     contact_horizon: torch.Tensor,  # ([B,] N, NC) 0/1 flags
     c_horizon: torch.Tensor,        # ([B,] N, NC, 3) world contact positions
     p_com_horizon: torch.Tensor,    # ([B,] N, 3) CoM positions for lever arms
-    landing_mask: Optional[torch.Tensor] = None,
-    f_nom: Optional[torch.Tensor] = None,
-    hdot_sw: Optional[torch.Tensor] = None,
+    landing_mask: Optional[torch.Tensor] = None,  # ([B,] N, NC) 1 where a contact
+                                    # sits at the upcoming landing (footstep_opt)
+    f_nom: Optional[torch.Tensor] = None,  # ([B,] N, NC, 3) nominal forces of the
+                                    # d x f linearization (footstep_opt)
+    hdot_sw: Optional[torch.Tensor] = None,  # ([B,] N, 3) geometric swing-limb
+                                    # r x a horizon, scaled by params.m_swing
 ):
     """Assemble the batched condensed QP and the lifting matrices:
-    (H, g, A, l, u, A_qp, B_qp, Ad, Bd, Ed, Wd), Ed and Wd None."""
-    _check_ported(cfg, hdot_sw)  # landing_mask and f_nom serve footstep_opt only
+    (H, g, A, l, u, A_qp, B_qp, Ad, Bd, Ed, Wd); Ed (B, N, NX, 2) is None
+    unless footstep_opt, Wd (B, N, NX) None without hdot_sw."""
+    _check_ported(cfg)
     N = cfg.horizon
     B = x0.shape[0]
     dtype, device = x0.dtype, x0.device
@@ -151,7 +149,33 @@ def build_qp(
     A_c, B_c = srbd.continuous_matrices(params, yaw_hor, r_hor)
     Ad, Bd = srbd.discretize(A_c, B_c, cfg.dt)             # (B, N, NX, NX/NU)
 
+    if hdot_sw is None:
+        Wd = None
+    else:
+        w_c = srbd.swing_disturbance(params, yaw_hor, hdot_sw.expand(B, N, 3))
+        Wd = srbd.discretize_affine(A_c, w_c, cfg.dt)  # (B, N, NX)
+
     A_qp, B_qp = srbd.condense(Ad, Bd)  # (B, N*NX, NX), (B, N*NX, N*NU)
+
+    Ed = E_qp = None
+    if cfg.footstep_opt:
+        if landing_mask is None:
+            landing_mask = x0.new_zeros((N, NC))
+        if f_nom is None:
+            f_nom = x0.new_zeros((N, NC, 3))
+        f_sum = torch.einsum("bnc,bncd->bnd", landing_mask.expand(B, N, NC),
+                             f_nom.expand(B, N, NC, 3))  # (B, N, 3)
+        E_c = srbd.landing_sensitivity(params, yaw_hor, f_sum)
+        _, Ed = srbd.discretize(A_c, E_c, cfg.dt)  # (B, N, NX, 2)
+        # Condense the shared d columns: row_k = A_k row_{k-1} + E_k; the QP
+        # variable is d_hat = d / d_scale.
+        rows = []
+        row = Ed[:, 0]
+        rows.append(row)
+        for k in range(1, N):
+            row = Ad[:, k] @ row + Ed[:, k]
+            rows.append(row)
+        E_qp = torch.cat(rows, dim=-2) * cfg.d_scale  # (B, N*NX, 2)
 
     Qbar = weights.Q.repeat(N)  # (N*NX,)
 
@@ -172,10 +196,19 @@ def build_qp(
         Rbar = weights.R.repeat(N)
         contact_knots = contact_horizon
 
-    # H = B'QB + R ; g = B'Q (A x0 - X_ref)
+    # Footstep decision columns after the (possibly knot-folded) forces.
+    if E_qp is not None:
+        B_qp = torch.cat([B_qp, E_qp], dim=-1)
+        Rbar = torch.cat([Rbar, Rbar.new_full((2,), cfg.w_d * cfg.d_scale**2)])
+
+    # H = B'QB + R ; g = B'Q (A x0 + W - X_ref), W the lifted swing-momentum
+    # preview (none without hdot_sw)
     BtQ = B_qp.mT * Qbar
     H = BtQ @ B_qp + torch.diag(Rbar)
-    resid = (A_qp @ x0[..., None])[..., 0] - x_ref.reshape(B, N * NX)
+    resid = (A_qp @ x0[..., None])[..., 0]
+    if Wd is not None:
+        resid = resid + srbd.lift_affine(Ad, Wd)
+    resid = resid - x_ref.reshape(B, N * NX)
     g = (BtQ @ resid[..., None])[..., 0]
 
     # Friction cones, block-diagonal over (K_knots, NC).
@@ -195,7 +228,19 @@ def build_qp(
     l = torch.where(act[..., None], l_act, 0.0).reshape(B, NK * 5)
     u = torch.where(act[..., None], u_act, 0.0).reshape(B, NK * 5)
 
-    return H, g, A_con, l, u, A_qp, B_qp, Ad, Bd, None, None
+    if E_qp is not None:
+        # Two zero columns for d in the cone rows, and the reach box
+        # |dx|, |dy| <= d_box.
+        n_var = NK * 3 + 2
+        box = torch.cat([A_con.new_zeros((2, NK * 3)),
+                         torch.eye(2, dtype=dtype, device=device)], dim=-1)
+        A_con = torch.cat([torch.cat([A_con, A_con.new_zeros((B, NK * 5, 2))], dim=-1),
+                           box.expand(B, 2, n_var)], dim=-2)
+        reach = cfg.d_box / cfg.d_scale
+        l = torch.cat([l, l.new_full((B, 2), -reach)], dim=-1)
+        u = torch.cat([u, u.new_full((B, 2), reach)], dim=-1)
+
+    return H, g, A_con, l, u, A_qp, B_qp, Ad, Bd, Ed, Wd
 
 
 def solve(
@@ -213,28 +258,39 @@ def solve(
     hdot_sw: Optional[torch.Tensor] = None,
 ) -> MPCSolution:
     """One batched MPC update: ``(B, ...)`` states and horizons in, first-step
-    forces ``u0`` (B, NU) and the predicted state horizon out."""
+    forces ``u0`` (B, NU) and the predicted state horizon out; with
+    ``footstep_opt`` also the landing offset d (B, 2), linearized about
+    ``f_nom`` (by default the warm start U_warm)."""
     N = cfg.horizon
     B = x0.shape[0]
     mb = max(1, cfg.move_block)
     K_knots = (N + mb - 1) // mb
-    H, g, A_con, l, u, A_qp, B_qp, Ad, Bd, _, _ = build_qp(
+    if cfg.footstep_opt and f_nom is None and U_warm is not None:
+        f_nom = U_warm.reshape(B, N, NC, 3)
+    H, g, A_con, l, u, A_qp, B_qp, Ad, Bd, Ed, Wd = build_qp(
         cfg, weights, params, x0, x_ref, contact_horizon, c_horizon,
         p_com_horizon, landing_mask=landing_mask, f_nom=f_nom, hdot_sw=hdot_sw,
     )
     if U_warm is None:
         x0_warm = None
     else:
-        idxs = [min(k * mb, N - 1) for k in range(K_knots)]
-        x0_warm = U_warm[:, idxs].reshape(B, K_knots * NU)
+        # Each knot's first step (k * mb < N for every knot k): a view, no
+        # index tensor copied from the host.
+        x0_warm = U_warm[:, 0:N:mb].reshape(B, K_knots * NU)
+        if cfg.footstep_opt:
+            x0_warm = torch.cat([x0_warm, x0_warm.new_zeros((B, 2))], dim=-1)
     sol = qplib.solve_qp(H, g, A_con, l, u, cfg=cfg.qp, x0=x0_warm)
-    U = sol.x.reshape(B, K_knots, NU).repeat_interleave(mb, dim=1)[:, :N]
+    if cfg.footstep_opt:
+        xU, d = sol.x[:, :-2], sol.x[:, -2:] * cfg.d_scale
+    else:
+        xU, d = sol.x, x0.new_zeros((B, 2))
+    U = xU.reshape(B, K_knots, NU).repeat_interleave(mb, dim=1)[:, :N]
     # Hard-zero swing-contact forces: the QP boxes them to [0, 0], so any
     # residual is ADMM slack; masking makes the invariant exact downstream.
     U = U * contact_horizon.expand(B, N, NC).to(U.dtype).repeat_interleave(3, dim=-1)
-    x_hor = srbd.rollout(Ad, Bd, x0, U)
+    x_hor = srbd.rollout(Ad, Bd, x0, U, Ed=Ed, d=d, wd=Wd)
     return MPCSolution(
-        u0=U[:, 0], U=U, x_horizon=x_hor, d=x0.new_zeros((B, 2)),
+        u0=U[:, 0], U=U, x_horizon=x_hor, d=d,
         pri_res=sol.pri_res, dua_res=sol.dua_res,
     )
 
@@ -263,6 +319,7 @@ class MPCSolver(nn.Module):
         return srbd.SRBDParams(mass=self.mass, inertia=self.inertia, m_swing=self.m_swing)
 
     def forward(self, x0, x_ref, contact_horizon, c_horizon, p_com_horizon,
-                U_warm=None) -> MPCSolution:
+                U_warm=None, landing_mask=None, hdot_sw=None) -> MPCSolution:
         return solve(self.cfg, self.weights, self.params, x0, x_ref,
-                     contact_horizon, c_horizon, p_com_horizon, U_warm=U_warm)
+                     contact_horizon, c_horizon, p_com_horizon, U_warm=U_warm,
+                     landing_mask=landing_mask, hdot_sw=hdot_sw)

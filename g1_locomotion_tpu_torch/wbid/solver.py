@@ -90,26 +90,18 @@ def _tensor_fields(obj):
             if isinstance(getattr(obj, f.name), torch.Tensor)}
 
 
-class WBIDSolver(nn.Module):
-    """The WBID tick as a module: the robot model's tensors, the stack's
-    constant blocks and the gains are buffers (so ``.to(device)`` moves
-    them); :func:`solve` runs with a fixed :class:`WBIDConfig`.
+class ModelModule(nn.Module):
+    """A module that holds a robot model and its :class:`StackIndices`: their
+    tensors are buffers (so ``.to(device)`` moves them), and ``model`` and
+    ``idx`` are rebuilt from the buffers whenever the module moves, and kept:
+    their index tensors are made once per device."""
 
-    ``model`` and ``idx`` are rebuilt from the buffers whenever the module
-    moves, and kept: their index tensors are made once per device."""
-
-    def __init__(self, cfg: WBIDConfig, model: RobotModel, gains: WBIDGains,
-                 idx: Optional[StackIndices] = None):
+    def __init__(self, model: RobotModel, idx: Optional[StackIndices] = None):
         super().__init__()
-        self.cfg = cfg
         self._static = (model, idx if idx is not None else StackIndices.from_model(model))
         for prefix, obj in (("model_", self._static[0]), ("idx_", self._static[1])):
             for name, t in _tensor_fields(obj).items():
                 self.register_buffer(prefix + name, t)
-        self._gain_names = WBIDGains._fields
-        for name in self._gain_names:
-            self.register_buffer("gain_" + name, torch.as_tensor(getattr(gains, name)))
-        self._rebuild()
 
     def _rebuild(self) -> None:
         model, idx = self._static
@@ -123,6 +115,21 @@ class WBIDSolver(nn.Module):
         out = super()._apply(fn, recurse)
         self._rebuild()
         return out
+
+
+class WBIDSolver(ModelModule):
+    """The WBID tick as a module: the robot model, the stack's constant blocks
+    and the gains are buffers; :func:`solve` runs with a fixed
+    :class:`WBIDConfig`."""
+
+    def __init__(self, cfg: WBIDConfig, model: RobotModel, gains: WBIDGains,
+                 idx: Optional[StackIndices] = None):
+        super().__init__(model, idx)
+        self.cfg = cfg
+        self._gain_names = WBIDGains._fields
+        for name in self._gain_names:
+            self.register_buffer("gain_" + name, torch.as_tensor(getattr(gains, name)))
+        self._rebuild()
 
     @property
     def gains(self) -> WBIDGains:

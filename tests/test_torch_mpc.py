@@ -173,6 +173,9 @@ def test_warm_start_from_the_plan_keeps_the_solution(slice_case):
 
 @pytest.mark.parametrize("feature", ["footstep_opt", "roll_moment_max", "hdot_sw"])
 def test_unported_features_raise(slice_case, feature):
+    """roll_moment_max > 0 (measured negative in the reference) still raises;
+    footstep_opt and the hdot_sw preview, once refused here too, are ported:
+    they run and give finite plans (held against the JAX package below)."""
     port, _ = slice_case
     cfg = tmpc.MPCConfig()
     kwargs = {}
@@ -183,6 +186,73 @@ def test_unported_features_raise(slice_case, feature):
     else:
         kwargs["hdot_sw"] = torch.zeros((B, N, 3), dtype=F64)
     t = port["inputs"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmpc.solve(cfg, port["weights"], port["params"], t["x0"], t["x_ref"],
-                   t["contact"], t["c_hor"], t["p_hor"], **kwargs)
+    args = (cfg, port["weights"], port["params"], t["x0"], t["x_ref"], t["contact"],
+            t["c_hor"], t["p_hor"])
+    if feature == "roll_moment_max":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tmpc.solve(*args, **kwargs)
+    else:
+        sol = tmpc.solve(*args, **kwargs)
+        assert all(torch.isfinite(x).all() for x in sol)
+
+
+# footstep_opt and the swing-momentum preview, at the walk's horizon (N = 20:
+# 242 variables, 402 rows), on MPC inputs that the JAX planner makes at the
+# states the validated walk visits (tests/torch_walk_states.py), with a
+# swing-limb mass of 1 kg so that the preview acts, on the walk's QP path
+# (walking_config: the factorization path; the JAX package's matmul-inverse
+# path at this size takes minutes of XLA compilation on a CPU). u0 within
+# 1e-6 N, d within 1e-9 m and the predicted states within 1e-6 (measured
+# maxima in CHANGES.md).
+FOOTSTEP_CONFIGS = {
+    "factorization": jmpc.MPCConfig(
+        horizon=20, footstep_opt=True,
+        qp=JQPConfig(iters=60, scaling_iters=0, rho=1.0, rho_segments=2, polish_rounds=3,
+                     matmul_inverse=False)),
+}
+
+
+@pytest.mark.parametrize("name", list(FOOTSTEP_CONFIGS))
+def test_footstep_opt_and_swing_preview_match_jax(name):
+    import sys
+    from pathlib import Path
+
+    from g1_locomotion_tpu.engine import tick as jeng
+    from g1_locomotion_tpu.gait import planner as jpl
+
+    sys.path.insert(0, str(Path(__file__).parent))
+    import torch_walk_states
+
+    cfg = FOOTSTEP_CONFIGS[name]
+    S = torch_walk_states.split()
+    scen = jeng.walking_scenario(jnp.float64, n_steps=8.0, v_cmd=(0.1, 0.0))
+    params = scen.srbd._replace(m_swing=jnp.asarray(1.0, jnp.float64))
+    weights = scen.mpc_weights
+    plan = jax.vmap(lambda x0, cpos, c, ss: jpl.plan_horizon(
+        scen.gait, scen.steps, scen.v_cmd, x0, cpos, c, 20, 0.04, 0.598, swing_start=ss))(
+        S["x0"], S["cpos"], S["gait_clock"], S["swing_start"])
+    inputs = (S["x0"], plan.x_ref, plan.contact_hor, plan.c_hor, plan.p_ref)
+
+    @jax.jit
+    def jsolve(U_warm, lm, hd, *args):
+        return jax.vmap(lambda u, m, h, *a: jmpc.solve(cfg, weights, params, *a, U_warm=u,
+                                                       landing_mask=m, hdot_sw=h))(
+            U_warm, lm, hd, *args)
+
+    # A cold solve gives the warm start (the d x f linearization's forces).
+    cold = jsolve(jnp.zeros((len(S["x0"]), 20, 12)), plan.landing_mask, plan.hdot_geom, *inputs)
+    ref = jsolve(cold.U, plan.landing_mask, plan.hdot_geom, *inputs)
+    assert float(np.abs(np.asarray(ref.d)).max()) > 1e-4  # the offset is in use
+    assert float(np.abs(np.asarray(plan.hdot_geom)).max()) > 0.1  # so is the preview
+
+    t = lambda x: torch.tensor(np.asarray(x), dtype=F64)  # noqa: E731
+    sol = tmpc.solve(convert.mpc_config(cfg._asdict()),
+                     convert.mpc_weights(weights._asdict(), device=CPU, dtype=F64),
+                     convert.srbd_params(params._asdict(), device=CPU, dtype=F64),
+                     *(t(x) for x in inputs), U_warm=t(cold.U),
+                     landing_mask=t(plan.landing_mask), hdot_sw=t(plan.hdot_geom))
+    du0 = float(np.abs(sol.u0.numpy() - np.asarray(ref.u0)).max())
+    dd = float(np.abs(sol.d.numpy() - np.asarray(ref.d)).max())
+    dx = float(np.abs(sol.x_horizon.numpy() - np.asarray(ref.x_horizon)).max())
+    print(f"{name}: |du0| {du0:.2e} N, |dd| {dd:.2e} m, |dx_horizon| {dx:.2e}")
+    assert du0 <= 1e-6 and dd <= 1e-9 and dx <= 1e-6

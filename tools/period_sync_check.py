@@ -1,0 +1,81 @@
+"""Which operations of a control period make the host wait for the card.
+
+    python3 tools/period_sync_check.py
+
+On one CUDA card, one period of each of the three configurations that
+chip_smoke.py drives (serving B = 1, the default configuration at B = 64,
+``walking_config`` at float64, B = 1) under
+``torch.cuda.set_sync_debug_mode("warn")``: every operation that
+synchronizes the host with the card warns, and this prints, per
+configuration, how many warnings each line of this repository's code that
+led to one gave. A period with none
+can be captured as one CUDA graph. Needs a card; raises without one.
+"""
+
+from __future__ import annotations
+
+import collections
+import sys
+import traceback
+import warnings
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+import torch  # noqa: E402
+
+from g1_locomotion_tpu_torch._device import require_cuda  # noqa: E402
+from g1_locomotion_tpu_torch.engine import tick as eng  # noqa: E402
+from g1_locomotion_tpu_torch.models.robot import load_robot  # noqa: E402
+
+
+def serving(cfg):
+    return cfg._replace(
+        mpc=cfg.mpc._replace(qp=cfg.mpc.qp._replace(polish_kernel=True)),
+        wbid=cfg.wbid._replace(qp=cfg.wbid.qp._replace(polish_kernel=True), fast_stack=True))
+
+
+def check(label, cfg, batch, dtype, params_fn, device):
+    model = load_robot("g1_23dof", device=device, dtype=dtype)
+    loop = eng.ControlLoop(model, cfg)
+    params = params_fn(device=device, dtype=dtype)
+    state = eng.init_state(model, cfg, batch, dtype)
+    state, _ = loop.period(state, params)  # warm: first-use allocations and builds
+    torch.cuda.synchronize()
+    counts = collections.Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            # The innermost frame of this repository's code that led there.
+            frames = [f for f in traceback.extract_stack()
+                      if f.filename.startswith(str(REPO)) and f.filename != __file__]
+            where = frames[-1] if frames else None
+            counts[f"{Path(where.filename).relative_to(REPO)}:{where.lineno}" if where
+                   else f"{Path(filename).name}:{lineno}"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            loop.period(state, params)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    total = sum(counts.values())
+    print(f"{label}: {total} synchronizing operations in one period"
+          + ("" if not counts else ": " + ", ".join(f"{k} x{n}" for k, n in counts.most_common())))
+
+
+def main():
+    device = require_cuda()
+    check("serving (B = 1, f32)", serving(eng.EngineConfig()), 1, torch.float32,
+          eng.default_scenario, device)
+    check("default (B = 64, f32)", eng.EngineConfig(), 64, torch.float32,
+          eng.default_scenario, device)
+    check("walking_config (B = 1, f64)", eng.walking_config(), 1, torch.float64,
+          eng.walking_scenario, device)
+
+
+if __name__ == "__main__":
+    main()
