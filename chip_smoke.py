@@ -10,7 +10,11 @@ float32, from seeded generators:
   friction-cone rows -> segmented ADMM with active-set polish -> rollout):
   N = 10, 120 decision variables, 200 constraint rows;
 * the WBID tick of the 23-DoF G1 (FK, RNEA / CRBA, the task stack's QP with
-  41 variables and 80 rows, the same ADMM, torques by RNEA - Jc' f).
+  41 variables and 80 rows, the same ADMM, torques by RNEA - Jc' f);
+* the control period (MPC, 40 WBID ticks and the plant), for the 23-DoF G1
+  and the 29-DoF and with-hand variants (QP nx = 47 / 61);
+* the SRBD-level closed loop of planner, MPC and rigid body, and the
+  reference-compatible MPC class.
 
 Phases, each of which must pass:
 
@@ -20,7 +24,10 @@ Phases, each of which must pass:
    of B2, B3 and B4) must not spill;
 1. each kernel against its plain PyTorch version on the card, on inputs
    recorded from every main path (so at the shapes, and for B1 the strided
-   views, they give it: the MPC's 120 / 200 and the WBID's 41 / 80), and
+   views, they give it: the MPC's 120 / 200 at B = 4096 and, through the
+   MPC class, at B = 1, the WBID's 41 / 80 and the variants' 47 / 92 and
+   61 / 120); where no instance of a recorded B1 layout is numerically SPD,
+   a seeded SPD batch of that shape through the same strides instead; and
    B1-B3 also on random SPD systems at those widths;
 2. MPC throughput: one ``MPCSolver`` call at B = 4096 in the ``bench.py``
    configuration (matmul inverses, kernel B1); physical invariants; the
@@ -52,7 +59,32 @@ Phases, each of which must pass:
    the first 800 rows of ``tests/goldens/walk_golden.npz``: contact flags
    equal, CoM within 1e-4 m, tau within 5e-2 N m, forces within 0.5 N
    (``tests/test_golden.py``'s tolerances); no kernel launches;
-4. timings (run after phase 9) with CUDA events (not counted as main-path
+10. batched SRBD loop: ``mpc/srbd_loop.SRBDLoop`` in ``MPCConfig()`` (N = 10,
+    the matmul inverses) with ``walking_scenario``, B = 4096, 200 periods
+    (8 steps and the settle), each instance kicked laterally at period 60
+    by a seeded draw in [0, 0.15] m/s: B1 at exactly 28 launches a period;
+    no NaN, swing forces exactly 0, pri_res and the CoM height within
+    SRBD_BOUNDS; the kick's period for the first 8 instances against the
+    plain-version path;
+11. the SRBD loop's serving chain: 50 data-dependent B = 1 periods with
+    ``polish_kernel`` (B2 3, B3 2, B4 2 a period, B4 at 30 iterations a
+    segment), p50 / max per period; the same invariants; one period
+    against the plain-version path;
+12. the validated SRBD walk: ``walking_config().mpc`` at float64, B = 1,
+    200 periods, against ``tests/test_srbd_loop.py:33-57``'s bar; no kernel;
+13. the variant cascade: one default-configuration period of
+    ``g1_29dof`` and of ``g1_29dof_with_hand`` (their torso / hand tasks
+    from ``variant_walking_config``, ``variant_walking_scenario``) at B =
+    2048 from ``init_state``: B1 at the new block sizes (23 / 24; 30, 15 /
+    16), exactly 748 / 868 launches; the period invariants within twice the
+    JAX package's f32 maxima; the first 256 instances against the
+    plain-version path;
+14. the reference-compatible ``mpc/api.MPC`` class: two updates of the
+    standing case (``tests/test_compat_api.py:10-49``): sum fz within 0.5%
+    of m g, the warm-started second within DU0_MAX_N of the first, each
+    within DU0_MAX_N of the same update through the plain versions; B1 28
+    launches each;
+4. timings (run after phase 14) with CUDA events (not counted as main-path
    launches): each kernel at each shape its paths give it, its plain version
    and, where one PyTorch call computes the same function, that call, in
    turns; beside them the card bound (bytes over the memory rate, operations
@@ -61,7 +93,9 @@ Phases, each of which must pass:
    the MPC's throughput and serving latency, the WBID serving tick's p50 /
    p99 and the batched tick's ticks/s; the serving period's wall time (p50,
    max, per tick; from phase 7's chain) and the batched cascade's period
-   (CUDA events) and ticks/s. Kernel times are device times: the
+   (CUDA events) and ticks/s; each variant cascade's ticks/s; the batched
+   SRBD loop's instance-periods/s and the serving chain's p50 (from phases
+   10 and 11). Kernel times are device times: the
    launches queue up behind a kernel that keeps the card busy meanwhile, so
    a wrapper that takes the host longer than its kernel runs does not show.
 
@@ -73,16 +107,17 @@ WBID pri_res, the force on a swinging foot's contacts, the deviation of the
 summed normal force from m g in double support and the base's tilt within
 PERIOD_BOUNDS (twice the JAX package's maxima, tools/period_invariant_bounds.py).
 
-Launch counters are zeroed right before each path (phases 2, 3, 5-9) and
+Launch counters are zeroed right before each path (phases 2, 3, 5-14) and
 read right after it; every kernel must have launched as often as that path
 calls it. The line before the last is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero, and so does a machine without a CUDA device.
 ``--profile`` adds ``torch.profiler`` passes over 50 MPC serving solves, 3
 MPC throughput batches, the SPD inverse alone, 50 WBID serving ticks, 3
-batched WBID ticks, one serving period and one batched period (device busy
-share, device time by kernel and by kind); they are measurements, not
-checks.
+batched WBID ticks, one serving period, one batched period, 5 periods of
+the batched SRBD loop, 10 of its serving chain and one with-hand cascade
+period (device busy share, device time by kernel and by kind); they are
+measurements, not checks.
 """
 
 from __future__ import annotations
@@ -160,7 +195,7 @@ PERIOD_TICKS = 40          # WBID ticks (and plant steps) per period
 B_CASCADE = 2048           # the batched cascade (tools/bench_cascade.py's size)
 GOLDEN_PERIODS = 20        # 0.8 s of the golden walk, through the first swing onset
 GOLDEN_TOL = {"com": 1e-4, "tau": 5e-2, "forces": 5e-1}  # tests/test_golden.py:55-57
-CASCADE_REPS = 2           # timed batched periods
+CASCADE_REPS = 1           # timed batched periods
 # Launches per period: the serving MPC solve B2 3, B3 2, B4 2 and each tick
 # B2 3, B3 3, B4 2; the default configuration's MPC solve B1 28 and each
 # tick B1 18.
@@ -190,6 +225,67 @@ PERIOD_BOUNDS = {
 # A period through the kernels against the same period through their plain
 # versions: |df| [N], |dtau| [N m] over the ticks, |dq| at the period's end.
 PERIOD_CMP_MAX = {"df": 1.0, "dtau": 1.0, "dq": 1e-3}
+# The SRBD-level closed loop (phases 10-12; mpc/srbd_loop.py's SRBDLoop):
+# planner, MPC and the rigid body, each period one MPC solve.
+SRBD_COM_HEIGHT = 0.598    # the loop's CoM height target [m]
+B_SRBD = 4096              # phase 10: a batch user's gait sweep
+SRBD_PERIODS = 200         # 8 s: 8 steps and the settle (tests/test_srbd_loop.py:18-30)
+SRBD_KICK_AT = 60          # the period of each instance's lateral kick
+SRBD_KICK_MAX = 0.15       # kicks drawn in [0, SRBD_KICK_MAX] m/s (test_srbd_walk_kick_recovery)
+SRBD_COMPARE = 8           # phase 10 instances held against the plain path
+SRBD_SERVING_PERIODS = 50  # phase 11: 2 s of data-dependent B = 1 periods
+SRBD_CMP_MAX = {"du0": DU0_MAX_N, "dx": 1e-3}  # kernel path vs plain path, one period
+# Per phase (10 batched, 11 serving), twice the largest value the JAX
+# package gives at float32 on the CPU for the same loop
+# (tools/period_invariant_bounds.py srbd_batched srbd_serving): pri_res and
+# the CoM height's deviation from its target [m]. The force on a swinging
+# foot's contacts is exactly 0 (the solve masks it).
+SRBD_BOUNDS = {
+    10: {"pri_res": 2 * 0.9044551849365234, "com_z_dev_m": 2 * 0.14531230926513672},
+    11: {"pri_res": 2 * 2.04301904886961e-05, "com_z_dev_m": 2 * 0.021333694458007812},
+}
+# Launches per SRBD-loop period: MPCConfig()'s solve B1 28 (12 at n = 30, 16
+# at n = 25); with polish_kernel B2 3, B3 2, B4 2 (30 iterations a segment).
+SRBD_LAUNCHES = {"chol_inverse_base": 28 * SRBD_PERIODS, "gj_inverse": 0, "gj_solve": 0,
+                 "admm_iterate": 0}
+SRBD_SERVING_LAUNCHES = {"chol_inverse_base": 0, "gj_inverse": 3 * SRBD_SERVING_PERIODS,
+                         "gj_solve": 2 * SRBD_SERVING_PERIODS,
+                         "admm_iterate": 2 * SRBD_SERVING_PERIODS}
+# Phase 12's walk: tests/test_srbd_loop.py:33-57's bar.
+SRBD_WALK_BAR = {"com_z_atol": 0.055, "com_z_settle_atol": 2e-3, "com_y_max": 0.25,
+                 "com_x_final": (0.25, 0.65), "v_final_max": 0.05, "touchdowns": 4}
+# Phase 13: the variant cascade, one default-configuration period at B =
+# 2048 with the variant's torso / hand tasks. The WBID QP's nx = nv + 12 =
+# 47 / 61 and m = 92 / 120 end in B1 at new block sizes: 47 -> 23 | 24,
+# 92 -> 46 -> 23 (18 a tick); 61 -> 30 | 31 -> 15 | 16, 120 -> 60 -> 30 (21
+# a tick); the MPC solve 28 as in phase 8.
+B_VARIANT = 2048
+VARIANTS = ("g1_29dof", "g1_29dof_with_hand")
+VARIANT_LAUNCHES = {
+    v: {"chol_inverse_base": 28 + PERIOD_TICKS * per_tick, "gj_inverse": 0, "gj_solve": 0,
+        "admm_iterate": 0}
+    for v, per_tick in (("g1_29dof", 18), ("g1_29dof_with_hand", 21))}
+# Twice the JAX package's f32 maxima of the same period
+# (tools/period_invariant_bounds.py g1_29dof g1_29dof_with_hand); a 0
+# maximum (the period is standing) takes the earlier phases' bound. The
+# WBID's pri_res is held to the tick's own bound, pri_res < 0.05 (phases 5
+# and 6), instead: at float32 it is the ADMM's rounding floor, a spread
+# that both packages share, so the largest of 40 ticks is a draw from it
+# (tools/wbid_f32_cross.py, on the 29-DoF period's QPs: the JAX solver
+# 7.263e-03 on its own, 9.003e-03 on the port's; the port's 9.644e-03 on
+# the JAX package's; 1.67e-06 for both at float64; the polish keeps no
+# round in either package).
+PERIOD_BOUNDS.update({
+    "g1_29dof": {"mpc_pri_res": 0.05, "wbid_pri_res": 0.05,
+                 "f_swing_N": SWING_F_MAX_N[5], "fz_dev_N": 2 * 157.66336059570312,
+                 "tilt_rad": 2 * 0.004979516379535198},
+    "g1_29dof_with_hand": {"mpc_pri_res": 0.05, "wbid_pri_res": 0.05,
+                           "f_swing_N": SWING_F_MAX_N[5], "fz_dev_N": 2 * 93.91232299804688,
+                           "tilt_rad": 2 * 0.005382186267524958},
+})
+# The MPC class (phase 14; tests/test_compat_api.py:10-49's standing case):
+# two updates, B1 28 each.
+API_LAUNCHES = {"chol_inverse_base": 2 * 28, "gj_inverse": 0, "gj_solve": 0, "admm_iterate": 0}
 REPLACES = {
     "chol_inverse_base": "g1_locomotion_tpu/ops/pallas_lin.py:118",
     "gj_inverse": "g1_locomotion_tpu/ops/pallas_lin.py:271",
@@ -456,6 +552,76 @@ def check_golden(log, periods: int) -> dict:
     return dev
 
 
+def srbd_kicks(batch: int, periods: int = SRBD_PERIODS, seed: int = 0) -> np.ndarray:
+    """(batch, periods, 3) velocity kicks of phase 10: each instance's
+    lateral kick at period SRBD_KICK_AT, drawn in [0, SRBD_KICK_MAX] m/s
+    from a seeded generator (so any first instances are the same draws)."""
+    kicks = np.zeros((batch, periods, 3))
+    kicks[:, SRBD_KICK_AT, 1] = np.random.default_rng(seed).uniform(0.0, SRBD_KICK_MAX, batch)
+    return kicks
+
+
+def srbd_maxima(log: dict) -> dict:
+    """The largest value of each SRBD-loop invariant over a log's instances
+    and periods (numpy arrays (B, periods, ...), as SRBDLoopLog's fields):
+    non-finite values (a count), pri_res, the force on the contacts of a
+    foot that swings in that period (its previous period's end flag is 0),
+    the CoM height's deviation from SRBD_COM_HEIGHT.
+    tools/period_invariant_bounds.py gives it the JAX package's logs."""
+    non_finite = sum(int((~np.isfinite(log[k])).sum()) for k in ("x", "u0", "pri_res"))
+    flags = np.concatenate([np.ones_like(log["contact"][:, :1]), log["contact"][:, :-1]], axis=1)
+    swing = np.repeat(flags < 0.5, 2, axis=-1)  # (B, periods, 4) contacts
+    forces = log["u0"].reshape(swing.shape + (3,))
+    return {"non_finite": non_finite, "pri_res": float(log["pri_res"].max()),
+            "f_swing_N": float(np.abs(forces[swing]).max()) if swing.any() else 0.0,
+            "com_z_dev_m": float(np.abs(log["x"][..., 5] - SRBD_COM_HEIGHT).max())}
+
+
+def check_srbd(label: str, maxima: dict, phase: int) -> None:
+    bounds = SRBD_BOUNDS[phase]
+    bad = [k for k, b in bounds.items() if not maxima[k] <= b]
+    bad += [k for k in ("non_finite", "f_swing_N") if maxima[k]]
+    print(f"{label}: " + ("invariants ok" if not bad else f"FAILED {bad}") + f"; maxima {maxima}"
+          f" (bounds: no NaN, swing forces exactly 0, "
+          + ", ".join(f"{k} <= {b:.3e}" for k, b in bounds.items()) + ")")
+    if bad:
+        raise AssertionError(f"{label}: SRBD-loop invariants violated: {bad}")
+
+
+def compare_srbd(label: str, kernel, plain) -> None:
+    """One SRBD-loop period through the kernels against the same period
+    through their plain versions: ((state, log), (state, log))."""
+    torch.cuda.synchronize()
+    (ks, kl), (ps, pl) = kernel, plain
+    d = {"du0": float((kl.u0 - pl.u0).abs().amax()), "dx": float((ks.x - ps.x).abs().amax())}
+    print(f"{label}: kernel path vs plain path |du0| max {d['du0']:.3e} N, |dx| at the "
+          f"period's end {d['dx']:.3e} (bounds {SRBD_CMP_MAX})")
+    if not all(d[k] <= SRBD_CMP_MAX[k] for k in d):
+        raise AssertionError(f"{label}: the kernel path differs from the plain path")
+
+
+def check_srbd_walk(log) -> dict:
+    """tests/test_srbd_loop.py:33-57's assertions on a B = 1 walk's log;
+    returns the values checked."""
+    x = log.x[0].double().cpu().numpy()
+    c = log.contact[0].double().cpu().numpy()
+    bar = SRBD_WALK_BAR
+    td = np.clip(np.diff((c > 0.5).astype(int), axis=0), 0, 1).sum(axis=0)
+    got = {"finite": bool(np.isfinite(x).all()),
+           "com_z_dev": float(np.abs(x[:, 5] - SRBD_COM_HEIGHT).max()),
+           "com_z_settle_dev": float(np.abs(x[-20:, 5] - SRBD_COM_HEIGHT).max()),
+           "com_y_max": float(np.abs(x[:, 4]).max()), "com_x_final": float(x[-1, 3]),
+           "v_final_max": float(np.abs(x[-1, 9:11]).max()), "touchdowns": td.tolist()}
+    held = (got["finite"] and got["com_z_dev"] <= bar["com_z_atol"]
+            and got["com_z_settle_dev"] <= bar["com_z_settle_atol"]
+            and got["com_y_max"] < bar["com_y_max"]
+            and bar["com_x_final"][0] < got["com_x_final"] < bar["com_x_final"][1]
+            and got["v_final_max"] < bar["v_final_max"] and min(td) >= bar["touchdowns"])
+    if not held:
+        raise AssertionError(f"phase 12: the SRBD walk misses the bar {bar}: {got}")
+    return got
+
+
 def serving_chain(solver, model, idx, device, dtype, ticks=WBID_TICKS, record=None):
     """The serving tick's data-dependent chain from the standing pose: each
     tick's qddot feeds v += qddot dt, q = integrate_q(q, v, dt); the first
@@ -497,6 +663,24 @@ def compare_paths(label: str, kernel_sol, plain_sol) -> None:
           f"(each <= {WBID_CMP_MAX})")
     if not (df <= WBID_CMP_MAX and dtau <= WBID_CMP_MAX):
         raise AssertionError(f"{label}: the kernel path differs from the plain path")
+
+
+def mpc_class_case(device):
+    """(a fresh MPC class on the card, the arguments of its update): the
+    standing case of tests/test_compat_api.py:10-49."""
+    from g1_locomotion_tpu_torch.mpc.api import MPC
+
+    api = MPC(dt=0.04, device=device)
+    api.init_matrices()
+    api.x0[3:6] = np.array([[5.26790425e-02], [7.44339342e-05], [5.97983255e-01]])
+    api.x_ref_hor[:, :] = 0.0
+    api.x_ref_hor[0, :] = api.x0[:, 0]
+    api.x_ref_hor[:, 3:6] = api.x0[3:6, 0]
+    api.x_ref_hor[:, -1] = api.g
+    feet = np.array([[-0.05, 0.12, 0.0], [0.12, 0.12, 0.0], [-0.05, -0.12, 0.0],
+                     [0.12, -0.12, 0.0]])
+    return api, ([np.ones(4)] * api.HORIZON_LENGTH, [feet.reshape(-1)] * api.HORIZON_LENGTH,
+                 api.x_ref_hor[:, 3:6].copy())
 
 
 def first_per_shape(recorded):
@@ -854,8 +1038,11 @@ def compare_kernels(calls, gen_device) -> dict:
     # instances where the plain version gives an inverse good to 1%: the
     # polish's Schur systems of some WBID instances are not numerically SPD
     # at float32; there neither gives an inverse (either may overflow), and
-    # the polish drops the candidate, as the reference's does.
-    for key, args, (k_stride, w_stride) in calls["chol_inverse_base"]:
+    # the polish drops the candidate, as the reference's does. Where no
+    # instance of a layout is left, a seeded SPD batch of the same shape
+    # (cond 1e3) goes through the same strides instead, so that every
+    # layout's values are checked.
+    for i, (key, args, (k_stride, w_stride)) in enumerate(calls["chol_inverse_base"]):
         K = args[0]
         W_ref = cuda_lin.chol_inverse_base_ref(K)
         res_ref = chol_residuals(K, W_ref)
@@ -864,6 +1051,16 @@ def compare_kernels(calls, gen_device) -> dict:
             print(f"B1 main-path blocks {key[0]}, K strides {k_stride}: "
                   f"{int((~kept).sum())} instances not numerically SPD at {K.dtype} (plain "
                   f"version's residual above 1e-2 or not finite), left out")
+        if not bool(kept.any()):
+            K = random_spd(K.shape[0], K.shape[-1], 1e3, 100 + i, K.device).to(K.dtype)
+            W_ref = cuda_lin.chol_inverse_base_ref(K)
+            res_ref = chol_residuals(K, W_ref)
+            kept = res_ref <= 1e-2
+            print(f"B1 main-path blocks {key[0]}, K strides {k_stride}: no instance left; "
+                  f"a seeded SPD batch of that shape (cond 1e3) through the same strides "
+                  f"instead, {int(kept.sum())} instances good to 1% on the plain version")
+            if not bool(kept.any()):
+                raise AssertionError("B1: the plain version fails on the seeded SPD batch")
         k_buf, k_view = strided_copy(K, k_stride)
         w_buf, w_view = strided_copy(torch.full_like(K, float("nan")), w_stride)
         cuda_lin.chol_inverse_base(k_view, out=w_view)
@@ -879,8 +1076,6 @@ def compare_kernels(calls, gen_device) -> dict:
         if not torch.all(torch.triu(w_view, 1) == 0):
             raise AssertionError("B1 left non-zeros above the diagonal of W")
         for label, W in (("strided", w_view), ("dense", W_dense)):
-            if not bool(kept.any()):
-                break
             res = chol_residuals(K, W)[kept]
             W, W_kept = W[kept], W_ref[kept]
             note("chol_inverse_base", float((W - W_kept).abs().max()))
@@ -955,6 +1150,9 @@ def compare_kernels(calls, gen_device) -> dict:
     return errs
 
 
+T_START = time.perf_counter()
+
+
 def main(argv) -> None:
     from g1_locomotion_tpu_torch._device import require_cuda
 
@@ -1019,11 +1217,19 @@ def main(argv) -> None:
     esrv, ebat = eng.ControlLoop(robot, esrv_cfg), eng.ControlLoop(robot, ebat_cfg)
     eparams = eng.default_scenario(device=device, dtype=dtype)
     tau_max, mg = robot.tau_max.double().cpu().numpy(), float(robot.total_mass) * 9.80665
+    vloops, vparams = {}, {}
+    for variant in VARIANTS:
+        vmodel = load_robot(variant, device=device, dtype=dtype)
+        vcfg = eng.variant_walking_config(vmodel)
+        vloops[variant] = eng.ControlLoop(vmodel, ebat_cfg._replace(
+            torso_task=vcfg.torso_task, hand_task=vcfg.hand_task))
+        vparams[variant] = eng.variant_walking_scenario(vmodel, dtype=dtype)
 
     # Phase 1: record each kernel's main-path inputs (both MPC paths, one
     # serving WBID tick, the batched WBID tick, one serving period, one
-    # batched period), then hold each kernel against its plain version on
-    # them.
+    # batched period, one period of each variant cascade, one update of the
+    # MPC class at B = 1; the SRBD loop's phases give the kernels the MPC
+    # paths' shapes), then hold each kernel against its plain version on them.
     calls = {}
     with recording_kernels(calls):
         run(thr, inp)
@@ -1032,6 +1238,11 @@ def main(argv) -> None:
         wbat(wq, wv, wrefs)
         esrv.period(eng.init_state(esrv.model, esrv_cfg, 1, dtype), eparams)
         ebat.period(eng.init_state(ebat.model, ebat_cfg, B_CASCADE, dtype), eparams)
+        for variant, vloop in vloops.items():
+            vloop.period(eng.init_state(vloop.model, vloop.cfg, B_VARIANT, dtype),
+                         vparams[variant])
+        api, api_args = mpc_class_case(device)
+        api.update(*api_args, x_current=api.x0)
     torch.cuda.synchronize()
     errs = compare_kernels(calls, device)
     print("phase 1 kernels vs plain versions: ok")
@@ -1187,15 +1398,163 @@ def main(argv) -> None:
           f"max |dCoM| {dev['com']:.3e} m, |dtau| {dev['tau']:.3e} N m, |df| "
           f"{dev['forces']:.3e} N (bounds {GOLDEN_TOL})")
 
+    # Phase 10: the batched SRBD loop at B = 4096 (kernel B1), 200 periods
+    # with a lateral kick per instance at period 60.
+    from g1_locomotion_tpu_torch.mpc import srbd_loop as sl
+    from g1_locomotion_tpu_torch.mpc.solver import MPCConfig
+
+    scfg = MPCConfig()
+    sloop = sl.SRBDLoop(scfg, SRBD_COM_HEIGHT)
+    sparams = eng.walking_scenario(device=device, dtype=dtype)
+    kicks = torch.tensor(srbd_kicks(B_SRBD), dtype=dtype, device=device)
+    sstate = sl.init_loop_state(scfg, SRBD_COM_HEIGHT, batch=B_SRBD, device=device, dtype=dtype)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    cuda_lin.reset_launch_counts()
+    t0 = time.perf_counter()
+    start.record()
+    s_mid, slog1 = sloop.rollout(sstate, sparams, SRBD_KICK_AT, kicks[:, :SRBD_KICK_AT])
+    s_fin, slog2 = sloop.rollout(s_mid, sparams, SRBD_PERIODS - SRBD_KICK_AT,
+                                 kicks[:, SRBD_KICK_AT:])
+    end.record()
+    torch.cuda.synchronize()
+    srbd_wall = time.perf_counter() - t0
+    srbd_ms = start.elapsed_time(end)
+    srbd_launches = cuda_lin.launch_counts()
+    print(f"phase 10 batched SRBD loop: B={B_SRBD}, {SRBD_PERIODS} periods in {srbd_ms:.1f} ms "
+          f"(CUDA events; host clock {srbd_wall:.3f} s): {SRBD_PERIODS / (srbd_ms / 1e3):.1f} "
+          f"periods/s, {B_SRBD * SRBD_PERIODS / (srbd_ms / 1e3):.1f} instance-periods/s; "
+          f"launches {srbd_launches} "
+          f"({srbd_launches['chol_inverse_base'] / SRBD_PERIODS:.1f} B1 a period)")
+    if srbd_launches != SRBD_LAUNCHES:
+        raise AssertionError(f"batched SRBD loop launched {srbd_launches}, "
+                             f"expected {SRBD_LAUNCHES}")
+    slog = {k: np.concatenate([log_numpy(slog1)[k], log_numpy(slog2)[k]], axis=1)
+            for k in slog1._fields}
+    check_srbd(f"phase 10 batched SRBD loop (B={B_SRBD})", srbd_maxima(slog), phase=10)
+    print(f"phase 10 lateral CoM at the end: |y| max {float(s_fin.x[:, 4].abs().max()):.4f} m, "
+          f"x mean {float(s_fin.x[:, 3].mean()):.4f} m; kicks {float(kicks.min()):.4f}-"
+          f"{float(kicks.max()):.4f} m/s")
+    s8 = take(s_mid, SRBD_COMPARE)
+    k8 = kicks[:SRBD_COMPARE, SRBD_KICK_AT]
+    kernel_s = sloop.period(s8, sparams, k8)
+    with plain_kernels():
+        plain_s = sloop.period(s8, sparams, k8)
+    compare_srbd(f"phase 10 batched SRBD loop, period {SRBD_KICK_AT} (the kick), first "
+                 f"{SRBD_COMPARE} instances", kernel_s, plain_s)
+
+    # Phase 11: the SRBD loop's serving chain, B = 1 (kernels B2, B3, B4).
+    srv_scfg = scfg._replace(qp=scfg.qp._replace(polish_kernel=True))
+    sloop_srv = sl.SRBDLoop(srv_scfg, SRBD_COM_HEIGHT)
+    state1 = sl.init_loop_state(srv_scfg, SRBD_COM_HEIGHT, batch=1, device=device, dtype=dtype)
+    cuda_lin.reset_launch_counts()
+    srbd_srv_ms, srv_logs, s_cmp = [], [], None
+    for k in range(SRBD_SERVING_PERIODS):
+        if k == SRBD_SERVING_PERIODS // 2:
+            s_cmp = state1
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state1, log1 = sloop_srv.period(state1, sparams)
+        torch.cuda.synchronize()
+        srbd_srv_ms.append((time.perf_counter() - t1) * 1e3)
+        srv_logs.append(log1)
+    ssrv_launches = cuda_lin.launch_counts()
+    print(f"phase 11 SRBD-loop serving chain: {SRBD_SERVING_PERIODS} B = 1 periods, p50 "
+          f"{median(srbd_srv_ms):.3f} ms, max {max(srbd_srv_ms):.3f} ms per period (host "
+          f"clock, synchronized); launches {ssrv_launches}")
+    if ssrv_launches != SRBD_SERVING_LAUNCHES:
+        raise AssertionError(f"SRBD-loop serving chain launched {ssrv_launches}, "
+                             f"expected {SRBD_SERVING_LAUNCHES}")
+    srv_log = sl.SRBDLoopLog(*(torch.stack(f, dim=1) for f in zip(*srv_logs)))
+    check_srbd(f"phase 11 SRBD-loop serving chain ({SRBD_SERVING_PERIODS} periods)",
+               srbd_maxima(log_numpy(srv_log)), phase=11)
+    kernel_1 = sloop_srv.period(s_cmp, sparams)
+    with plain_kernels():
+        plain_1 = sloop_srv.period(s_cmp, sparams)
+    compare_srbd(f"phase 11 SRBD-loop serving chain, period {SRBD_SERVING_PERIODS // 2}",
+                 kernel_1, plain_1)
+
+    # Phase 12: the validated SRBD walk at float64 (no kernel: the
+    # factorization path).
+    wcfg = eng.walking_config().mpc
+    state64 = sl.init_loop_state(wcfg, SRBD_COM_HEIGHT, batch=1, device=device,
+                                 dtype=torch.float64)
+    cuda_lin.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, wlog = sl.SRBDLoop(wcfg, SRBD_COM_HEIGHT).rollout(state64, wparams, SRBD_PERIODS)
+    torch.cuda.synchronize()
+    swalk_s = time.perf_counter() - t0
+    swalk_launches = cuda_lin.launch_counts()
+    if any(swalk_launches.values()):
+        raise AssertionError(f"the SRBD walk launched {swalk_launches}, expected no kernel")
+    bar = check_srbd_walk(wlog)
+    print(f"phase 12 SRBD walk at float64: {SRBD_PERIODS} periods in {swalk_s:.3f} s (host "
+          f"clock); launches {swalk_launches}; meets tests/test_srbd_loop.py's bar: {bar}")
+
+    # Phase 13: the variant cascade, one default period at B = 2048 for each
+    # variant (kernel B1 at the new block sizes).
+    var_launches, var_ms = {}, {}
+    for variant, vloop in vloops.items():
+        vstate = eng.init_state(vloop.model, vloop.cfg, B_VARIANT, dtype)
+        torch.cuda.synchronize()
+        cuda_lin.reset_launch_counts()
+        start.record()
+        vfin, vlog = vloop.period(vstate, vparams[variant])
+        end.record()
+        torch.cuda.synchronize()
+        var_ms[variant] = start.elapsed_time(end)
+        var_launches[variant] = cuda_lin.launch_counts()
+        print(f"phase 13 variant cascade {variant} (nv = {vloop.model.nv}): B={B_VARIANT} period "
+              f"in {var_ms[variant]:.3f} ms (CUDA events; the model's first period); launches "
+              f"{var_launches[variant]}")
+        if var_launches[variant] != VARIANT_LAUNCHES[variant]:
+            raise AssertionError(f"{variant} cascade launched {var_launches[variant]}, "
+                                 f"expected {VARIANT_LAUNCHES[variant]}")
+        vmg = float(vloop.model.total_mass) * 9.80665
+        check_period(f"phase 13 {variant} cascade (B={B_VARIANT})",
+                     period_maxima(log_numpy(vlog), vloop.model.tau_max.double().cpu().numpy(),
+                                   vmg), phase=variant)
+        with plain_kernels():
+            vref = vloop.period(take(vstate, B_COMPARE), vparams[variant])
+        compare_periods(f"phase 13 {variant} cascade, first {B_COMPARE} instances",
+                        (take(vfin, B_COMPARE), take(vlog, B_COMPARE)), vref)
+        del vfin, vlog, vref
+
+    # Phase 14: the reference-compatible MPC class on the card (B1 at B = 1).
+    from g1_locomotion_tpu_torch.models.srbd import G1_MASS, GRAVITY
+
+    api, api_args = mpc_class_case(device)
+    cuda_lin.reset_launch_counts()
+    u_api, x_api = api.update(*api_args, x_current=api.x0, one_rollout=True)
+    u_api2, _ = api.update(*api_args, x_current=api.x0)
+    api_launches = cuda_lin.launch_counts()
+    with plain_kernels():
+        api_ref, _ = mpc_class_case(device)
+        u_ref = api_ref.update(*api_args, x_current=api_ref.x0)[0]
+        u_ref2 = api_ref.update(*api_args, x_current=api_ref.x0)[0]
+    api_mg = G1_MASS * -GRAVITY
+    api_fz, api_du = float(u_api[2::3].sum()), float(np.abs(u_api2 - u_api).max())
+    api_cmp = max(float(np.abs(u_api - u_ref).max()), float(np.abs(u_api2 - u_ref2).max()))
+    print(f"phase 14 MPC class: sum fz {api_fz:.3f} N (m g {api_mg:.3f} N, within 0.5%), "
+          f"warm-started second update |du0| {api_du:.3e} N (<= {DU0_MAX_N}); x_opt "
+          f"{x_api.shape}; launches {api_launches}; both updates kernel path vs plain path "
+          f"|du0| max {api_cmp:.3e} N (<= {DU0_MAX_N})")
+    if api_launches != API_LAUNCHES:
+        raise AssertionError(f"the MPC class launched {api_launches}, expected {API_LAUNCHES}")
+    if not (abs(api_fz - api_mg) <= 5e-3 * api_mg and api_du <= DU0_MAX_N
+            and u_api.shape == (12,) and x_api.shape == (11, 13)):
+        raise AssertionError("phase 14: the MPC class's standing solve is off")
+    if not api_cmp <= DU0_MAX_N:
+        raise AssertionError("phase 14: the MPC class's kernel path differs from its plain path")
+
     paths = {"MPC throughput": thr_launches, "MPC serving": srv_launches,
              "WBID serving": wsrv_launches, "WBID batched": wbat_launches,
-             "serving period": psrv_launches, "batched cascade": pbat_launches}
+             "serving period": psrv_launches, "batched cascade": pbat_launches,
+             "SRBD loop batched": srbd_launches, "SRBD loop serving": ssrv_launches,
+             **{f"{v} cascade": var_launches[v] for v in VARIANTS}, "MPC class": api_launches}
     launches = {name: sum(p[name] for p in paths.values()) for name in REPLACES}
-    print(f"main-path launches: {launches} (MPC throughput batch {thr_launches}; "
-          f"{SERVING_CHAIN}-solve MPC serving chain {srv_launches}; {WBID_TICKS}-tick WBID "
-          f"serving chain {wsrv_launches}; B={B_WBID} WBID batched tick {wbat_launches}; "
-          f"{SERVING_PERIODS}-period serving chain {psrv_launches}; B={B_CASCADE} batched "
-          f"period {pbat_launches})")
+    print(f"main-path launches: {launches} ("
+          + "; ".join(f"{path} {count}" for path, count in paths.items()) + ")")
     for name, count in launches.items():
         if count == 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
@@ -1253,6 +1612,16 @@ def main(argv) -> None:
           f"{B_CASCADE * PERIOD_TICKS / (median(cas_ms) / 1e3):.1f} ticks/s, "
           f"{B_CASCADE / (median(cas_ms) / 1e3):.1f} periods/s")
 
+    for variant, v_ms in var_ms.items():
+        print(f"[{gpu}] {variant} cascade (B={B_VARIANT}, nv = {vloops[variant].model.nv}): "
+              f"period {v_ms:.3f} ms (phase 13's, CUDA events); "
+              f"{B_VARIANT * PERIOD_TICKS / (v_ms / 1e3):.1f} ticks/s")
+    print(f"[{gpu}] batched SRBD loop (B={B_SRBD}): {srbd_ms / SRBD_PERIODS:.3f} ms a period, "
+          f"{B_SRBD * SRBD_PERIODS / (srbd_ms / 1e3):.1f} instance-periods/s (phase 10's "
+          f"{SRBD_PERIODS} periods, CUDA events); SRBD-loop serving (B=1): p50 "
+          f"{median(srbd_srv_ms):.3f} ms, max {max(srbd_srv_ms):.3f} ms a period (phase 11, "
+          f"host clock)")
+
     # A batch of SPD matrices of the throughput K's size, for the recursion alone.
     gen = torch.Generator().manual_seed(2)
     M = torch.randn((B_THROUGHPUT, 120, 120), generator=gen).to(device)
@@ -1276,6 +1645,15 @@ def main(argv) -> None:
                      gpu, by=op_kind)
         profile_path(f"batched cascade B={B_CASCADE}", lambda: ebat.period(bstate, eparams), 1,
                      "period", gpu, by=op_kind)
+        profile_path(f"batched SRBD loop B={B_SRBD}", lambda: sloop.period(s_mid, sparams), 5,
+                     "period", gpu, by=op_kind)
+        profile_path("SRBD-loop serving B=1", lambda: sloop_srv.period(s_cmp, sparams), 10,
+                     "period", gpu, by=op_kind)
+        hand = vloops["g1_29dof_with_hand"]
+        hstate = eng.init_state(hand.model, hand.cfg, B_VARIANT, dtype)
+        profile_path(f"g1_29dof_with_hand cascade B={B_VARIANT}",
+                     lambda: hand.period(hstate, vparams["g1_29dof_with_hand"]), 1, "period",
+                     gpu, by=op_kind)
 
     # Each kernel beside its plain version, its library call and its bounds.
     # B1 at each block size of the throughput path, widest first, on each
@@ -1386,6 +1764,7 @@ def main(argv) -> None:
          "paths": {path: p[name] for path, p in paths.items() if p[name]}}
         for name in REPLACES
     ]
+    print(f"chip_smoke.py: {time.perf_counter() - T_START:.1f} s in all, the build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

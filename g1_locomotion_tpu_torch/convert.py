@@ -6,8 +6,8 @@ and ``EngineState`` arrive as mappings (or NamedTuples) of numpy arrays,
 its ``RobotModel`` as a mapping of its fields (numpy arrays and the static
 tuples), and its ``MPCConfig`` / ``QPConfig`` / ``WBIDConfig`` /
 ``PlantConfig`` / ``EngineConfig`` as their ``_asdict()`` dicts (or the
-NamedTuples); this module turns them into this package's types on a given
-device and dtype, batch-first. It never imports JAX: callers convert with
+NamedTuples), its ``SRBDLoopState`` as its fields; this module turns them
+into this package's types on a given device and dtype, batch-first. It never imports JAX: callers convert with
 ``np.asarray`` first (a JAX array converts where numpy reads it).
 """
 
@@ -25,6 +25,7 @@ from g1_locomotion_tpu_torch.gait.schedule import GaitConfig
 from g1_locomotion_tpu_torch.models.robot import RobotModel
 from g1_locomotion_tpu_torch.models.srbd import SRBDParams
 from g1_locomotion_tpu_torch.mpc.solver import MPCConfig, MPCWeights
+from g1_locomotion_tpu_torch.mpc.srbd_loop import SRBDLoopState
 from g1_locomotion_tpu_torch.ops.qp import QPConfig
 from g1_locomotion_tpu_torch.wbid.solver import WBIDConfig
 from g1_locomotion_tpu_torch.wbid.tasks import WBIDGains, WBIDReferences
@@ -149,11 +150,22 @@ def engine_config(cfg: Any) -> EngineConfig:
     return EngineConfig(**fields)
 
 
+def _batched(fields: Mapping[str, Any], single: bool, *, device, dtype) -> dict:
+    """The fields as tensors, each with a batch axis of 1 added when `single`."""
+    return {k: _tensor(np.asarray(v)[None] if single else v, device=device, dtype=dtype)
+            for k, v in fields.items()}
+
+
 def engine_state(state: Any, *, device, dtype=torch.float32) -> EngineState:
     """EngineState from the reference's fields: one instance (``q`` of shape
     (nq,)) gains a batch axis of 1, a batched state (``q`` (B, nq)) keeps
     its own."""
-    f = {k: np.asarray(v) for k, v in _fields(state).items()}
-    single = f["q"].ndim == 1
-    return EngineState(**{k: _tensor(v[None] if single else v, device=device, dtype=dtype)
-                          for k, v in f.items()})
+    f = _fields(state)
+    return EngineState(**_batched(f, np.ndim(f["q"]) == 1, device=device, dtype=dtype))
+
+
+def srbd_loop_state(state: Any, *, device, dtype=torch.float32) -> SRBDLoopState:
+    """SRBDLoopState from the reference's fields: one instance (``x`` of
+    shape (13,)) gains a batch axis of 1, a batched state keeps its own."""
+    f = _fields(state)
+    return SRBDLoopState(**_batched(f, np.ndim(f["x"]) == 1, device=device, dtype=dtype))

@@ -17,9 +17,7 @@ runs none. The plant, the planner and the gait FSM are plain tensor ops and
 ``torch.linalg.solve``.
 
 Not ported (see ROADMAP.md): ``EngineConfig.telemetry`` (the reference's
-host-callback stopwatch; it raises), ``variant_walking_scenario`` /
-``variant_walking_config`` (they need ``srbd.params_from_model``) and the
-MuJoCo scenarios.
+host-callback stopwatch; it raises) and the MuJoCo scenarios.
 """
 
 from __future__ import annotations
@@ -173,6 +171,45 @@ def stale_walking_scenario(*, device=None, dtype=torch.float32, n_steps: float =
     landing lock at 0.5."""
     p = walking_scenario_f32_robust(device=device, dtype=dtype, n_steps=n_steps, v_cmd=v_cmd)
     return p._replace(gait=p.gait._replace(landing_lock=_scalar(p.v_cmd, 0.5)))
+
+
+def _has_waist_tilt(model: RobotModel) -> bool:
+    return any(("waist_roll" in n) or ("waist_pitch" in n) for n in model.joint_names)
+
+
+def _has_hands(model: RobotModel) -> bool:
+    return any("hand_thumb" in n for n in model.joint_names)
+
+
+def variant_walking_scenario(model: RobotModel, *, dtype=torch.float32, n_steps: float = 8.0,
+                             v_cmd=(0.1, 0.0)) -> ScenarioParams:
+    """walking_scenario for a robot variant, on the model's device: the SRBD
+    parameters of this model at its standing pose (the 23-DoF constants
+    destabilize other mass distributions), posture stiffening (w_posture
+    2.0) when the variant has waist roll / pitch joints, and the stiff hand
+    hold (w_hand 10, hand_kd 40) when it has hands. Pair with
+    :func:`variant_walking_config`."""
+    p = walking_scenario(device=model.device, dtype=dtype, n_steps=n_steps, v_cmd=v_cmd)
+    like = p.v_cmd
+    p = p._replace(srbd=srbd.params_from_model(model, q_init_standing(model, 1, dtype)))
+    if _has_waist_tilt(model):
+        p = p._replace(wbid_gains=p.wbid_gains._replace(w_posture=_scalar(like, 2.0)))
+    if _has_hands(model):
+        p = p._replace(wbid_gains=p.wbid_gains._replace(w_hand=_scalar(like, 10.0),
+                                                        hand_kd=_scalar(like, 40.0)))
+    return p
+
+
+def variant_walking_config(model: RobotModel) -> EngineConfig:
+    """walking_config plus the torso-orientation task when the variant has
+    waist roll / pitch joints (the upper body above the waist is invisible
+    to the single-rigid-body MPC) and the hand tasks when it has hands."""
+    cfg = walking_config()
+    if _has_waist_tilt(model):
+        cfg = cfg._replace(torso_task=True)
+    if _has_hands(model):
+        cfg = cfg._replace(hand_task=True)
+    return cfg
 
 
 class EngineState(NamedTuple):

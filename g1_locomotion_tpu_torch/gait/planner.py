@@ -56,6 +56,15 @@ def _col(x: torch.Tensor) -> torch.Tensor:
     return x[..., None]
 
 
+def _on(value: Union[torch.Tensor, float], like: torch.Tensor) -> torch.Tensor:
+    """`value` as a tensor of `like`'s dtype and device; a number becomes a
+    0-d tensor filled on the device (torch.as_tensor would copy it from the
+    host, which makes the host wait for the card)."""
+    if isinstance(value, torch.Tensor):
+        return value.to(like.dtype)
+    return like.new_full((), value)
+
+
 def plan_horizon(
     gait: gs.GaitConfig,
     steps: fs.FootstepConfig,
@@ -74,7 +83,7 @@ def plan_horizon(
     plan_extras: bool = False,  # the reference's round-5 mechanisms (static gate)
 ) -> MPCPlan:
     dtype = x0.dtype
-    hold = torch.as_tensor(hold, dtype=dtype, device=x0.device)
+    hold = _on(hold, x0)
     v_cmd = v_cmd.expand(x0.shape[0], 2)
 
     contact_hor = gs.contact_horizon(gait, gait_clock, N, dt_mpc)
@@ -141,7 +150,7 @@ def plan_horizon(
               + fs.dcm_scale_sagittal(steps) * (xi_pred_x - xi_nom_x))
     landing = torch.stack([x_land, y_land, torch.zeros_like(x_land)], dim=-1)
     if prev_landing is not None:
-        lock = torch.as_tensor(lock_flag, dtype=dtype, device=x0.device)
+        lock = _on(lock_flag, x0)
         landing = torch.where(_col(lock > 0.5), prev_landing, landing)
 
     # Horizon contact positions: stance contacts where they are; the swing

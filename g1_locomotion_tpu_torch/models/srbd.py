@@ -25,6 +25,8 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 
 from g1_locomotion_tpu_torch.core.rotations import skew, yaw_matrix
+from g1_locomotion_tpu_torch.models import robot as rb
+from g1_locomotion_tpu_torch.models.robot import RobotModel
 
 NX = 13  # state dim
 NU = 12  # 4 contacts x 3 forces
@@ -70,6 +72,27 @@ def reference_parity_params(*, device, dtype=torch.float32) -> SRBDParams:
         mass=torch.tensor(G1_MASS, dtype=dtype, device=device),
         inertia=torch.tensor(TORSO_INERTIA, dtype=dtype, device=device),
     )
+
+
+def params_from_model(model: RobotModel, q: torch.Tensor) -> SRBDParams:
+    """SRBD parameters of a whole-body model at one configuration q ((nq,)
+    or (1, nq)): the total mass and the composite inertia about the
+    whole-body CoM, both shared by a batch. Each robot variant needs its own:
+    the 23-DoF constants destabilize the other variants' walking gaits."""
+    q = q.reshape(1, -1)
+    X = rb.fk(model, q)
+    R, p = X.R[0], X.p[0]  # (nb, 3, 3), (nb, 3)
+    com_b = torch.einsum("bij,bj->bi", R, model.com) + p
+    com = torch.sum(model.mass[:, None] * com_b, dim=0) / model.total_mass
+    I_w = torch.einsum("bij,bjk,blk->bil", R, model.inertia, R)
+    d = com_b - com[None, :]
+    d2 = torch.sum(d * d, dim=1)
+    eye = torch.eye(3, dtype=q.dtype, device=q.device)
+    shift = model.mass[:, None, None] * (
+        d2[:, None, None] * eye[None] - d[:, :, None] * d[:, None, :])
+    inertia = torch.sum(I_w + shift, dim=0)
+    return SRBDParams(mass=model.total_mass.to(q.dtype), inertia=inertia.to(q.dtype),
+                      m_swing=torch.zeros((), dtype=q.dtype, device=q.device))
 
 
 def _world_inertia(params: SRBDParams, yaw: torch.Tensor, dtype) -> Tuple[torch.Tensor, torch.Tensor]:

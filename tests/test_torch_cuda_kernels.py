@@ -216,10 +216,14 @@ def test_slice_float64_on_card_matches_cpu(cuda):
 # the recursion of ops/lin.py hands it at B = 2048 (41 -> 20 | 21, 80 -> 40 ->
 # 20), K and W both views of their parents; B2 on K and Hr (41); B3 on the
 # polish system (80); B4 at 41 x 80 for the serving tick's 25 iterations.
+# The variants' ticks: 29-DoF nx = 47 -> 23 | 24, m = 92 -> 46 -> 23;
+# with-hand nx = 61 -> 30 | 31 -> 15 | 16, m = 120 -> 60 -> 30.
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("parent, n, off", [(41, 20, 0), (41, 21, 20), (80, 20, 0),
-                                            (80, 20, 20), (80, 20, 60)])
+                                            (80, 20, 20), (80, 20, 60), (47, 23, 0),
+                                            (47, 24, 23), (92, 23, 69), (61, 30, 0),
+                                            (61, 15, 30), (61, 16, 45), (120, 30, 90)])
 def test_chol_inverse_base_at_wbid_blocks(cuda, dtype, parent, n, off):
     K = torch.tensor(_random_spd(parent + off, 2048, parent), dtype=dtype, device=cuda)
     W = torch.zeros_like(K)
@@ -299,3 +303,63 @@ def test_wbid_tick_float64_on_card_matches_cpu(cuda):
     on_cpu = tick(torch.device("cpu"))
     torch.testing.assert_close(on_card.forces.cpu(), on_cpu.forces, rtol=0, atol=1e-6)
     torch.testing.assert_close(on_card.tau.cpu(), on_cpu.tau, rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_srbd_loop_float64_on_card_matches_cpu(cuda):
+    """The batched SRBD loop (mpc/srbd_loop.py, MPCConfig(): kernel B1 at n =
+    30 / 25) at float64, B = 16, 10 periods with a lateral kick per instance
+    at period 5: the card (kernel B1) against the CPU (its plain version),
+    states and forces to 1e-6 (the CPU test tolerance vs JAX), 28 B1
+    launches a period."""
+    from g1_locomotion_tpu_torch.engine import tick as eng
+    from g1_locomotion_tpu_torch.mpc import srbd_loop as sl
+    from g1_locomotion_tpu_torch.mpc.solver import MPCConfig
+
+    B, periods = 16, 10
+    kicks = np.zeros((B, periods, 3))
+    kicks[:, 5, 1] = np.random.default_rng(0).uniform(0.0, 0.15, B)
+
+    def loop(device):
+        cfg = MPCConfig()
+        state = sl.init_loop_state(cfg, 0.598, batch=B, device=device, dtype=torch.float64)
+        params = eng.walking_scenario(device=device, dtype=torch.float64)
+        return sl.SRBDLoop(cfg).rollout(state, params, periods,
+                                        torch.tensor(kicks, device=device))
+
+    before = cuda_lin.launch_counts()["chol_inverse_base"]
+    _, on_card = loop(cuda)
+    torch.cuda.synchronize()
+    assert cuda_lin.launch_counts()["chol_inverse_base"] == before + 28 * periods
+    _, on_cpu = loop(torch.device("cpu"))
+    for name in ("x", "u0", "landing", "pri_res"):
+        torch.testing.assert_close(getattr(on_card, name).cpu(), getattr(on_cpu, name),
+                                   rtol=0, atol=1e-6)
+    assert torch.equal(on_card.contact.cpu(), on_cpu.contact)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("polish_kernel", [False, True])
+def test_srbd_loop_period_makes_no_host_sync(cuda, polish_kernel):
+    """One SRBD-loop period (after a warm one) with the card's sync check set
+    to raise: no operation makes the host wait for the card
+    (tools/period_sync_check.py's method), in MPCConfig() at B = 64 (B1) and
+    on the serving chain at B = 1 (B2-B4)."""
+    from g1_locomotion_tpu_torch.engine import tick as eng
+    from g1_locomotion_tpu_torch.mpc import srbd_loop as sl
+    from g1_locomotion_tpu_torch.mpc.solver import MPCConfig
+
+    cfg = MPCConfig()
+    cfg = cfg._replace(qp=cfg.qp._replace(polish_kernel=polish_kernel))
+    B = 1 if polish_kernel else 64
+    loop = sl.SRBDLoop(cfg)
+    params = eng.walking_scenario(device=cuda, dtype=torch.float32)
+    kick = torch.tensor([0.0, 0.1, 0.0], device=cuda).expand(B, 3)
+    state, _ = loop.period(sl.init_loop_state(cfg, 0.598, batch=B, device=cuda,
+                                              dtype=torch.float32), params, kick)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loop.period(state, params, kick)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

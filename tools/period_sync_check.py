@@ -2,14 +2,15 @@
 
     python3 tools/period_sync_check.py
 
-On one CUDA card, one period of each of the three configurations that
-chip_smoke.py drives (serving B = 1, the default configuration at B = 64,
-``walking_config`` at float64, B = 1) under
-``torch.cuda.set_sync_debug_mode("warn")``: every operation that
-synchronizes the host with the card warns, and this prints, per
+On one CUDA card, one period of each of the three control-period
+configurations that chip_smoke.py drives (serving B = 1, the default
+configuration at B = 64, ``walking_config`` at float64, B = 1) and of the
+SRBD loop's two (``MPCConfig()`` at B = 64 with a kick, its serving chain
+at B = 1) under ``torch.cuda.set_sync_debug_mode("warn")``: every operation
+that synchronizes the host with the card warns, and this prints, per
 configuration, how many warnings each line of this repository's code that
-led to one gave. A period with none
-can be captured as one CUDA graph. Needs a card; raises without one.
+led to one gave. A period with none can be captured as one CUDA graph.
+Needs a card; raises without one.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ import torch  # noqa: E402
 from g1_locomotion_tpu_torch._device import require_cuda  # noqa: E402
 from g1_locomotion_tpu_torch.engine import tick as eng  # noqa: E402
 from g1_locomotion_tpu_torch.models.robot import load_robot  # noqa: E402
+from g1_locomotion_tpu_torch.mpc import srbd_loop as sl  # noqa: E402
+from g1_locomotion_tpu_torch.mpc.solver import MPCConfig  # noqa: E402
 
 
 def serving(cfg):
@@ -36,12 +39,26 @@ def serving(cfg):
         wbid=cfg.wbid._replace(qp=cfg.wbid.qp._replace(polish_kernel=True), fast_stack=True))
 
 
-def check(label, cfg, batch, dtype, params_fn, device):
+def control_period(cfg, batch, dtype, params_fn, device):
+    """(one period of engine.tick.ControlLoop, its initial state)."""
     model = load_robot("g1_23dof", device=device, dtype=dtype)
     loop = eng.ControlLoop(model, cfg)
     params = params_fn(device=device, dtype=dtype)
-    state = eng.init_state(model, cfg, batch, dtype)
-    state, _ = loop.period(state, params)  # warm: first-use allocations and builds
+    return (lambda state: loop.period(state, params)), eng.init_state(model, cfg, batch, dtype)
+
+
+def srbd_period(cfg, batch, device):
+    """(one period of mpc/srbd_loop.SRBDLoop at float32 with a lateral kick,
+    its initial state)."""
+    loop = sl.SRBDLoop(cfg)
+    params = eng.walking_scenario(device=device, dtype=torch.float32)
+    kick = torch.tensor([0.0, 0.1, 0.0], device=device).expand(batch, 3)
+    state = sl.init_loop_state(cfg, 0.598, batch=batch, device=device, dtype=torch.float32)
+    return (lambda s: loop.period(s, params, kick)), state
+
+
+def check(label, period, state):
+    state, _ = period(state)  # warm: first-use allocations and builds
     torch.cuda.synchronize()
     counts = collections.Counter()
 
@@ -59,7 +76,7 @@ def check(label, cfg, batch, dtype, params_fn, device):
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            loop.period(state, params)
+            period(state)
         finally:
             torch.cuda.set_sync_debug_mode("default")
     total = sum(counts.values())
@@ -69,12 +86,16 @@ def check(label, cfg, batch, dtype, params_fn, device):
 
 def main():
     device = require_cuda()
-    check("serving (B = 1, f32)", serving(eng.EngineConfig()), 1, torch.float32,
-          eng.default_scenario, device)
-    check("default (B = 64, f32)", eng.EngineConfig(), 64, torch.float32,
-          eng.default_scenario, device)
-    check("walking_config (B = 1, f64)", eng.walking_config(), 1, torch.float64,
-          eng.walking_scenario, device)
+    check("serving (B = 1, f32)", *control_period(serving(eng.EngineConfig()), 1,
+                                                  torch.float32, eng.default_scenario, device))
+    check("default (B = 64, f32)", *control_period(eng.EngineConfig(), 64, torch.float32,
+                                                   eng.default_scenario, device))
+    check("walking_config (B = 1, f64)", *control_period(eng.walking_config(), 1, torch.float64,
+                                                         eng.walking_scenario, device))
+    mcfg = MPCConfig()
+    check("SRBD loop (B = 64, f32)", *srbd_period(mcfg, 64, device))
+    check("SRBD loop serving (B = 1, f32)", *srbd_period(
+        mcfg._replace(qp=mcfg.qp._replace(polish_kernel=True)), 1, device))
 
 
 if __name__ == "__main__":
