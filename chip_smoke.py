@@ -28,7 +28,9 @@ Phases, each of which must pass:
    MPC class, at B = 1, the WBID's 41 / 80 and the variants' 47 / 92 and
    61 / 120); where no instance of a recorded B1 layout is numerically SPD,
    a seeded SPD batch of that shape through the same strides instead; and
-   B1-B3 also on random SPD systems at those widths;
+   B1-B3 also on random SPD systems at those widths; B1 also at float64 on
+   seeded SPD batches (4096, n, n), n = 30, 25, 21, 20 (phase 0 prints its
+   registers and spills; a float64 spill is recorded, not a fault);
 2. MPC throughput: one ``MPCSolver`` call at B = 4096 in the ``bench.py``
    configuration (matmul inverses, kernel B1); physical invariants; the
    first 256 instances against the plain-version path on the card;
@@ -84,6 +86,23 @@ Phases, each of which must pass:
     of m g, the warm-started second within DU0_MAX_N of the first, each
     within DU0_MAX_N of the same update through the plain versions; B1 28
     launches each;
+15. the pod sweep (BASELINE config 5): ``parallel/sweep.run_sweep`` over
+    ``SweepSpec()``'s 4096 scenarios drawn by ``randomize`` from a seeded
+    generator (SRBD mass and inertia, WBID mu, swing duration, step length
+    and v_cmd per instance), the default ``EngineConfig``, 2 periods
+    unchunked and then as 2 chunks of one period through a
+    ``utils/checkpoint`` save and restore: B1 at exactly 748 launches a
+    period in both, the chunked statistics equal to the unchunked (``n`` and
+    ``fell_count`` exactly, the drift and tau_max within SWEEP_STATS_RTOL),
+    no scenario falls, every instance within the period invariants of
+    PERIOD_BOUNDS[15]; the first 256 instances against the plain-version
+    path; then the gait sweep demo (BASELINE config 3, B = 4096, B1 56);
+16. telemetry (``EngineConfig.telemetry``: CUDA events around the MPC solve
+    and each tick's WBID solve): one serving period and one default period
+    at B = 2048 with the launches of telemetry off, ``mpc_ms`` and
+    ``wbid_ms`` positive and finite, ``mpc_ms`` the same on a period's
+    ticks, the WBID solves no longer than the period's own events; the
+    fields exactly 0 in phases 7 and 8 (telemetry off);
 4. timings (run after phase 14) with CUDA events (not counted as main-path
    launches): each kernel at each shape its paths give it, its plain version
    and, where one PyTorch call computes the same function, that call, in
@@ -95,7 +114,9 @@ Phases, each of which must pass:
    max, per tick; from phase 7's chain) and the batched cascade's period
    (CUDA events) and ticks/s; each variant cascade's ticks/s; the batched
    SRBD loop's instance-periods/s and the serving chain's p50 (from phases
-   10 and 11). Kernel times are device times: the
+   10 and 11); the pod sweep's scenario-periods/s and scenario-ticks/s
+   (phase 15, CUDA events) and the gait sweep demo's solves/s. Kernel times
+   are device times: the
    launches queue up behind a kernel that keeps the card busy meanwhile, so
    a wrapper that takes the host longer than its kernel runs does not show.
 
@@ -107,7 +128,7 @@ WBID pri_res, the force on a swinging foot's contacts, the deviation of the
 summed normal force from m g in double support and the base's tilt within
 PERIOD_BOUNDS (twice the JAX package's maxima, tools/period_invariant_bounds.py).
 
-Launch counters are zeroed right before each path (phases 2, 3, 5-14) and
+Launch counters are zeroed right before each path (phases 2, 3, 5-16) and
 read right after it; every kernel must have launched as often as that path
 calls it. The line before the last is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``. Any failure
@@ -115,8 +136,8 @@ raises and exits non-zero, and so does a machine without a CUDA device.
 ``--profile`` adds ``torch.profiler`` passes over 50 MPC serving solves, 3
 MPC throughput batches, the SPD inverse alone, 50 WBID serving ticks, 3
 batched WBID ticks, one serving period, one batched period, 5 periods of
-the batched SRBD loop, 10 of its serving chain and one with-hand cascade
-period (device busy share, device time by kernel and by kind); they are
+the batched SRBD loop, 10 of its serving chain, one pod-sweep period at
+B = 4096 and one with-hand cascade period (device busy share, device time by kernel and by kind); they are
 measurements, not checks.
 """
 
@@ -286,6 +307,39 @@ PERIOD_BOUNDS.update({
 # The MPC class (phase 14; tests/test_compat_api.py:10-49's standing case):
 # two updates, B1 28 each.
 API_LAUNCHES = {"chol_inverse_base": 2 * 28, "gj_inverse": 0, "gj_solve": 0, "admm_iterate": 0}
+# Phase 15: the pod sweep (parallel/sweep.py), SweepSpec()'s 4096 scenarios
+# drawn by randomize from a CPU generator of this seed, the default
+# EngineConfig: SWEEP_PERIODS periods unchunked, then as that many chunks of
+# one period through a utils/checkpoint save and restore. B1 748 a period.
+SWEEP_SEED = 0
+SWEEP_PERIODS = 2
+B1_F64_SIZES = (30, 25, 21, 20)  # phase 1: B1 at float64, the sweep's block sizes
+SWEEP_LAUNCHES = {"chol_inverse_base": CASCADE_LAUNCHES["chol_inverse_base"] * SWEEP_PERIODS,
+                  "gj_inverse": 0, "gj_solve": 0, "admm_iterate": 0}
+SWEEP_STATS_RTOL = 1e-5  # chunked against unchunked: com_drift_sum, tau_max
+# Twice the JAX package's f32 maxima over the same 4096 drawn scenarios
+# (tools/period_invariant_bounds.py sweep); a 0 maximum (the MPC's pri_res,
+# and no foot swings before the gait starts at 0.5 s) takes the earlier
+# phases' bound, as phase 8. The randomized SRBD mass moves the MPC's
+# double-support sum fz off the plant's m g, so phase 8's fz bound does
+# not carry over. The WBID's pri_res is held to the tick's own bound, as in
+# phase 13: at f32 it is the ADMM's rounding floor, and on the first 512 of
+# these scenarios on the CPU the port reaches 4.309e-02 where the JAX
+# package reaches 1.825e-02 (2.063e-02 over all 4096); at f64 the two agree
+# to 5e-10 N in the forces (tests/test_torch_sweep_batch.py).
+PERIOD_BOUNDS[15] = {"mpc_pri_res": 0.05, "wbid_pri_res": 0.05,
+                     "f_swing_N": SWING_F_MAX_N[5], "fz_dev_N": 2 * 142.73638916015625,
+                     "tilt_rad": 2 * 0.03032771311700344}
+# The gait sweep demo (api/demos.demo_gait_sweep, BASELINE config 3): two
+# batched MPC solves (the first builds, the second is timed), B1 28 each.
+GAIT_SWEEP_LAUNCHES = {"chol_inverse_base": 2 * 28, "gj_inverse": 0, "gj_solve": 0,
+                       "admm_iterate": 0}
+# Phase 16: telemetry (EngineConfig.telemetry: CUDA events around the MPC
+# solve and each tick's WBID solve) on one serving period and one default
+# period at B_CASCADE; the launches those periods make with telemetry off.
+TELEMETRY_LAUNCHES = {
+    "serving": {k: v // SERVING_PERIODS for k, v in SERVING_PERIOD_LAUNCHES.items()},
+    "batched": CASCADE_LAUNCHES}
 REPLACES = {
     "chol_inverse_base": "g1_locomotion_tpu/ops/pallas_lin.py:118",
     "gj_inverse": "g1_locomotion_tpu/ops/pallas_lin.py:271",
@@ -816,13 +870,14 @@ def chol_residuals(K: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     return (K @ (W.mT @ W) - eye).abs().flatten(1).amax(dim=1)
 
 
-def random_spd(b: int, n: int, cond: float, seed: int, device) -> torch.Tensor:
-    """(b, n, n) float32 SPD matrices with eigenvalues in [1, cond]."""
+def random_spd(b: int, n: int, cond: float, seed: int, device,
+               dtype=torch.float32) -> torch.Tensor:
+    """(b, n, n) SPD matrices with eigenvalues in [1, cond]."""
     gen = torch.Generator().manual_seed(seed)
     Q, _ = torch.linalg.qr(torch.randn((b, n, n), generator=gen, dtype=torch.float64))
     lam = torch.exp(torch.rand((b, n), generator=gen, dtype=torch.float64)
                     * torch.log(torch.tensor(cond, dtype=torch.float64)))
-    return ((Q * lam[:, None, :]) @ Q.mT).to(torch.float32).to(device)
+    return ((Q * lam[:, None, :]) @ Q.mT).to(dtype).to(device)
 
 
 def work(name: str, args) -> dict:
@@ -1011,6 +1066,21 @@ def compare_kernels(calls, gen_device) -> dict:
         if not (err <= 2e-4 and res <= 5e-3):
             raise AssertionError("B1 disagrees with its plain version on random SPD blocks")
 
+    # B1 at float64 (chol_inv_base_kernel<double, n>, which the pod-sweep
+    # demo's float64 default reaches on the card) on seeded SPD batches at
+    # the pod sweep's block sizes, cond 1e3: within 1e-10 (about 1e6 ulps:
+    # a fault gives errors of order one).
+    for n in B1_F64_SIZES:
+        K = random_spd(B_THROUGHPUT, n, 1e3, 200 + n, gen_device, torch.float64)
+        W, W_ref = cuda_lin.chol_inverse_base(K), cuda_lin.chol_inverse_base_ref(K)
+        torch.cuda.synchronize()
+        err, res = rel_err(W, W_ref), eye_residual(K, W.mT @ W)
+        note("chol_inverse_base", float((W - W_ref).abs().max()))
+        print(f"B1 float64 random SPD {tuple(K.shape)}: rel err {err:.3e} (<= 1e-10), "
+              f"max|W'WK - I| {res:.3e} (<= 1e-10)")
+        if not (err <= 1e-10 and res <= 1e-10):
+            raise AssertionError("B1 at float64 disagrees with its plain version")
+
     # B2 / B3 on random SPD systems at the main path's widths, cond 1e2,
     # B = 3: within 2e-4 of the plain version (tests/test_torch_cuda_kernels.py).
     checks = []
@@ -1150,6 +1220,149 @@ def compare_kernels(calls, gen_device) -> dict:
     return errs
 
 
+@contextlib.contextmanager
+def observed_periods(loop, sink):
+    """Route loop.period through a wrapper that times each period with a
+    CUDA event pair and then hands (ms, log) to sink(ms, log)."""
+    period = loop.period
+
+    def wrapper(state, params):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = period(state, params)
+        end.record()
+        end.synchronize()
+        sink(start.elapsed_time(end), out[1])
+        return out
+
+    loop.period = wrapper
+    try:
+        yield
+    finally:
+        del loop.period
+
+
+def pod_sweep(loop, params, tau_max, mg, dtype) -> dict:
+    """Phase 15: parallel/sweep.run_sweep over params (the 4096 randomized
+    scenarios) through loop (the default configuration): SWEEP_PERIODS
+    periods unchunked, each period timed by CUDA events and its log held to
+    the period invariants; then the same periods as chunks of one period,
+    the states, statistics, drift origin and lowest heights through a
+    utils/checkpoint save and restore between them. B1 must launch 748
+    times a period in both; the chunked statistics must equal the
+    unchunked (n and fell_count exactly, the drift and tau_max within
+    SWEEP_STATS_RTOL); no scenario falls. The first B_COMPARE instances'
+    first period against the plain-version path."""
+    import tempfile
+
+    from g1_locomotion_tpu_torch.engine import tick as eng
+    from g1_locomotion_tpu_torch.ops import cuda_lin
+    from g1_locomotion_tpu_torch.parallel import sweep
+    from g1_locomotion_tpu_torch.utils import checkpoint, tree
+
+    B = params.batch()
+    state0 = eng.init_state(loop.model, loop.cfg, B, dtype)
+    period_ms, maxima = [], []
+
+    def sink(ms, log):
+        period_ms.append(ms)
+        maxima.append(period_maxima(log_numpy(log), tau_max, mg))
+
+    torch.cuda.synchronize()
+    cuda_lin.reset_launch_counts()
+    t0 = time.perf_counter()
+    with observed_periods(loop, sink):
+        _, _, whole = sweep.run_sweep(loop, params, SWEEP_PERIODS, states0=state0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = [cuda_lin.launch_counts()]
+    print(f"phase 15 pod sweep: B={B}, {SWEEP_PERIODS} periods unchunked in {wall:.3f} s (host "
+          f"clock, with the invariants' logs); periods {['%.3f' % m for m in period_ms]} ms "
+          f"(CUDA events); launches {launches[0]} "
+          f"({launches[0]['chol_inverse_base'] / SWEEP_PERIODS:.0f} B1 a period)")
+    if launches[0] != SWEEP_LAUNCHES:
+        raise AssertionError(f"the pod sweep launched {launches[0]}, expected {SWEEP_LAUNCHES}")
+    worst = {k: max(m[k] for m in maxima) for k in maxima[0]}
+    check_period(f"phase 15 pod sweep (B={B}, {SWEEP_PERIODS} periods)", worst, phase=15)
+
+    cuda_lin.reset_launch_counts()
+    states, com_ref, min_z, acc = state0, None, None, None
+    with tempfile.TemporaryDirectory() as tmp:
+        for chunk in range(SWEEP_PERIODS):
+            states, (start, z), stats = sweep.run_sweep(loop, params, 1, states0=states,
+                                                        com_ref=com_ref)
+            com_ref = start if com_ref is None else com_ref
+            min_z = z if min_z is None else torch.minimum(min_z, z)
+            acc = stats if acc is None else stats._replace(
+                tau_max=torch.maximum(acc.tau_max, stats.tau_max))
+            saved = (states, acc, com_ref, min_z)
+            checkpoint.save(f"{tmp}/sweep", saved, meta={"chunk": chunk + 1})
+            (states, acc, com_ref, min_z), meta = checkpoint.restore(
+                f"{tmp}/sweep", tree.map_leaves(torch.empty_like, saved))
+            if meta != {"chunk": chunk + 1} or not all(
+                    torch.equal(a, b) for a, b in zip(tree.leaves(saved), tree.leaves(
+                        (states, acc, com_ref, min_z)))):
+                raise AssertionError("phase 15: the checkpoint did not round-trip")
+    launches.append(cuda_lin.launch_counts())
+    if launches[1] != SWEEP_LAUNCHES:
+        raise AssertionError(f"the chunked pod sweep launched {launches[1]}, "
+                             f"expected {SWEEP_LAUNCHES}")
+    fell = (min_z < sweep.FALL_HEIGHT).to(dtype).sum()
+    got = {"n": float(acc.n), "fell_count": float(fell),
+           "com_drift_sum": float(acc.com_drift_sum), "tau_max": float(acc.tau_max)}
+    want = {k: float(getattr(whole, k)) for k in got}
+    rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+           for k in ("com_drift_sum", "tau_max")}
+    print(f"phase 15 pod sweep, {SWEEP_PERIODS} chunks of one period through a checkpoint: "
+          f"{got}; unchunked {want}; relative differences {rel} (<= {SWEEP_STATS_RTOL}; "
+          f"equal: {got == want})")
+    if not (got["n"] == want["n"] == B and got["fell_count"] == want["fell_count"] == 0.0
+            and all(r <= SWEEP_STATS_RTOL for r in rel.values())):
+        raise AssertionError("phase 15: the chunked sweep's statistics differ from the "
+                             "unchunked run's, or a scenario fell")
+
+    first = params.rows(slice(0, B_COMPARE))
+    kernel = loop.period(take(state0, B_COMPARE), first)
+    with plain_kernels():
+        plain = loop.period(take(state0, B_COMPARE), first)
+    compare_periods(f"phase 15 pod sweep, first {B_COMPARE} instances", kernel, plain)
+    return {"launches": launches, "period_ms": period_ms, "batch": B}
+
+
+def telemetry_period(name: str, loop, batch: int, params, dtype) -> dict:
+    """Phase 16: one period of loop (EngineConfig.telemetry on) at batch
+    from init_state, its own CUDA event pair around it: the launches must be
+    those of the same period with telemetry off; mpc_ms and wbid_ms > 0 and
+    finite, mpc_ms the same on every tick, the period's WBID solves no
+    longer than the period. Returns the launches."""
+    from g1_locomotion_tpu_torch.engine import tick as eng
+    from g1_locomotion_tpu_torch.ops import cuda_lin
+
+    state = eng.init_state(loop.model, loop.cfg, batch, dtype)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    cuda_lin.reset_launch_counts()
+    start.record()
+    _, log = loop.period(state, params)
+    end.record()
+    torch.cuda.synchronize()
+    launches = cuda_lin.launch_counts()
+    period = start.elapsed_time(end)
+    mpc, wbid = log.mpc_ms.double().cpu(), log.wbid_ms.double().cpu()
+    wbid_sum = float(wbid.sum(dim=1).max())
+    print(f"phase 16 telemetry, {name} period (B={batch}): period {period:.3f} ms (CUDA events); "
+          f"mpc_ms {float(mpc[0, 0]):.3f}; wbid_ms per tick {float(wbid.min()):.3f}-"
+          f"{float(wbid.max()):.3f}, {wbid_sum:.3f} over the period; launches {launches}")
+    if launches != TELEMETRY_LAUNCHES[name]:
+        raise AssertionError(f"phase 16 {name}: launched {launches}, expected "
+                             f"{TELEMETRY_LAUNCHES[name]} (as with telemetry off)")
+    if not (bool(torch.isfinite(mpc).all() and torch.isfinite(wbid).all())
+            and bool((mpc > 0).all() and (wbid > 0).all())
+            and torch.equal(mpc, mpc[:, :1].expand_as(mpc)) and wbid_sum <= period):
+        raise AssertionError(f"phase 16 {name}: the stage times are off")
+    return launches
+
+
 T_START = time.perf_counter()
 
 
@@ -1178,26 +1391,34 @@ def main(argv) -> None:
     cuda_lin._lib()
     print(f"phase 0 build: {seconds:.1f} s -> {path.name}; {probe_seconds:.1f} s -> "
           f"{probe_path.name}")
-    entry, base_regs = "", {}
+    entry, base_regs, f64_spills = "", {}, {}
     for line in log.splitlines():
         if "Compiling entry" in line:
             entry = line
+        # B1 has one kernel per type and block size: one line for each type.
+        base = re.search(r"chol_inv_base_kernelI([fd])Li(\d+)E", entry)
         if ("spill" in line and any(k in entry for k in REGISTER_KERNELS)
                 and not line.strip().startswith(
                     "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")):
-            raise AssertionError(f"a kernel that keeps its matrix in registers spills: "
-                                 f"{entry.strip()} {line.strip()}")
-        # B1 has one kernel per type and block size: one line for each type.
-        base = re.search(r"chol_inv_base_kernelI([fd])Li(\d+)E", entry)
+            if base and base.group(1) == "d":
+                # B1 at float64 runs on no card path by default: its spills
+                # are recorded, not a fault.
+                f64_spills[int(base.group(2))] = line.strip()
+            else:
+                raise AssertionError(f"a kernel that keeps its matrix in registers spills: "
+                                     f"{entry.strip()} {line.strip()}")
         regs = re.search(r"Used (\d+) registers", line)
         if base and regs:
             base_regs.setdefault(base.group(1), {})[int(base.group(2))] = int(regs.group(1))
         elif not base and ("registers" in line or "Compiling entry" in line or "spill" in line):
             print(f"  ptxas: {line.strip()}")
     for kind, regs in sorted(base_regs.items()):
+        spills = f64_spills if kind == "d" else {}
         print(f"  ptxas: chol_inv_base_kernel<{'float' if kind == 'f' else 'double'}, n> for n = "
-              f"{min(regs)}..{max(regs)}: no spill; registers at n = 25 / 30 / 32: "
-              f"{regs.get(25)} / {regs.get(30)} / {regs.get(32)}")
+              f"{min(regs)}..{max(regs)}: registers at n = 20 / 21 / 25 / 30 / 32: "
+              + " / ".join(str(regs.get(n)) for n in (20, 21, 25, 30, 32)) + "; "
+              + (f"spills at n = {sorted(spills)}: " + "; ".join(
+                  f"n = {n}: {spills[n]}" for n in sorted(spills)) if spills else "no spill"))
 
     thr_cfg, srv_cfg = configs()
     thr, srv = solver_for(thr_cfg, device, dtype), solver_for(srv_cfg, device, dtype)
@@ -1224,12 +1445,19 @@ def main(argv) -> None:
         vloops[variant] = eng.ControlLoop(vmodel, ebat_cfg._replace(
             torso_task=vcfg.torso_task, hand_task=vcfg.hand_task))
         vparams[variant] = eng.variant_walking_scenario(vmodel, dtype=dtype)
+    from g1_locomotion_tpu_torch.parallel import sweep
+
+    # The pod sweep's batch (phase 15), drawn on the CPU and moved to the card.
+    sparams_pod = sweep.randomize(sweep.SweepSpec(), torch.Generator().manual_seed(SWEEP_SEED),
+                                  eparams)
+    B_SWEEP = sparams_pod.batch()
 
     # Phase 1: record each kernel's main-path inputs (both MPC paths, one
     # serving WBID tick, the batched WBID tick, one serving period, one
-    # batched period, one period of each variant cascade, one update of the
-    # MPC class at B = 1; the SRBD loop's phases give the kernels the MPC
-    # paths' shapes), then hold each kernel against its plain version on them.
+    # batched period, one period of the pod sweep's batch, one period of each
+    # variant cascade, one update of the MPC class at B = 1; the SRBD loop's
+    # phases give the kernels the MPC paths' shapes), then hold each kernel
+    # against its plain version on them.
     calls = {}
     with recording_kernels(calls):
         run(thr, inp)
@@ -1238,6 +1466,7 @@ def main(argv) -> None:
         wbat(wq, wv, wrefs)
         esrv.period(eng.init_state(esrv.model, esrv_cfg, 1, dtype), eparams)
         ebat.period(eng.init_state(ebat.model, ebat_cfg, B_CASCADE, dtype), eparams)
+        ebat.period(eng.init_state(ebat.model, ebat_cfg, B_SWEEP, dtype), sparams_pod)
         for variant, vloop in vloops.items():
             vloop.period(eng.init_state(vloop.model, vloop.cfg, B_VARIANT, dtype),
                          vparams[variant])
@@ -1547,11 +1776,42 @@ def main(argv) -> None:
     if not api_cmp <= DU0_MAX_N:
         raise AssertionError("phase 14: the MPC class's kernel path differs from its plain path")
 
+    # Phase 15: the pod sweep (parallel/sweep.run_sweep) at full width, the
+    # default configuration, SWEEP_PERIODS periods unchunked, then the same
+    # periods as chunks of one period through a checkpoint.
+    pod = pod_sweep(ebat, sparams_pod, tau_max, mg, dtype)
+
+    # The gait sweep demo (BASELINE config 3) at B = 4096: B1 on both solves.
+    from g1_locomotion_tpu_torch.api import demos
+
+    cuda_lin.reset_launch_counts()
+    gait = demos.demo_gait_sweep(batch=B_THROUGHPUT, device=device)
+    gait_launches = cuda_lin.launch_counts()
+    print(f"gait sweep demo: {gait}; launches {gait_launches}")
+    if gait_launches != GAIT_SWEEP_LAUNCHES:
+        raise AssertionError(f"the gait sweep demo launched {gait_launches}, "
+                             f"expected {GAIT_SWEEP_LAUNCHES}")
+    if not (np.isfinite(gait["max_pri_res"]) and gait["solves_per_s"] > 0):
+        raise AssertionError(f"the gait sweep demo's result is off: {gait}")
+
+    # Phase 16: telemetry on the serving period and on a default period at
+    # B_CASCADE; with telemetry off (phases 7 and 8) the fields are zeros.
+    for label, log in (("phase 7", chain_log), ("phase 8", log_numpy(blog))):
+        if np.abs(log["mpc_ms"]).max() != 0.0 or np.abs(log["wbid_ms"]).max() != 0.0:
+            raise AssertionError(f"{label}: telemetry off, but mpc_ms / wbid_ms are not 0")
+    tel_launches = {}
+    for name, cfg, batch in (("serving", esrv_cfg, 1), ("batched", ebat_cfg, B_CASCADE)):
+        tel_launches[name] = telemetry_period(name, eng.ControlLoop(robot, cfg._replace(
+            telemetry=True)), batch, eparams, dtype)
+
     paths = {"MPC throughput": thr_launches, "MPC serving": srv_launches,
              "WBID serving": wsrv_launches, "WBID batched": wbat_launches,
              "serving period": psrv_launches, "batched cascade": pbat_launches,
              "SRBD loop batched": srbd_launches, "SRBD loop serving": ssrv_launches,
-             **{f"{v} cascade": var_launches[v] for v in VARIANTS}, "MPC class": api_launches}
+             **{f"{v} cascade": var_launches[v] for v in VARIANTS}, "MPC class": api_launches,
+             "pod sweep": {k: pod["launches"][0][k] + pod["launches"][1][k] for k in REPLACES},
+             "gait sweep demo": gait_launches,
+             **{f"telemetry {k} period": v for k, v in tel_launches.items()}}
     launches = {name: sum(p[name] for p in paths.values()) for name in REPLACES}
     print(f"main-path launches: {launches} ("
           + "; ".join(f"{path} {count}" for path, count in paths.items()) + ")")
@@ -1621,6 +1881,14 @@ def main(argv) -> None:
           f"{SRBD_PERIODS} periods, CUDA events); SRBD-loop serving (B=1): p50 "
           f"{median(srbd_srv_ms):.3f} ms, max {max(srbd_srv_ms):.3f} ms a period (phase 11, "
           f"host clock)")
+    pod_ms = median(pod["period_ms"])
+    print(f"[{gpu}] pod sweep (B={pod['batch']}, default configuration): period median "
+          f"{pod_ms:.3f} ms over phase 15's {SWEEP_PERIODS} unchunked periods "
+          f"({', '.join('%.3f' % m for m in pod['period_ms'])} ms, CUDA events); "
+          f"{pod['batch'] / (pod_ms / 1e3):.1f} scenario-periods/s, "
+          f"{pod['batch'] * PERIOD_TICKS / (pod_ms / 1e3):.1f} scenario-ticks/s")
+    print(f"[{gpu}] gait sweep demo (B={gait['batch']}): {gait['solves_per_s']:.1f} solves/s "
+          f"(one batched solve after the first, host clock, synchronized)")
 
     # A batch of SPD matrices of the throughput K's size, for the recursion alone.
     gen = torch.Generator().manual_seed(2)
@@ -1648,6 +1916,10 @@ def main(argv) -> None:
         profile_path(f"batched SRBD loop B={B_SRBD}", lambda: sloop.period(s_mid, sparams), 5,
                      "period", gpu, by=op_kind)
         profile_path("SRBD-loop serving B=1", lambda: sloop_srv.period(s_cmp, sparams), 10,
+                     "period", gpu, by=op_kind)
+        pod_state = eng.init_state(ebat.model, ebat_cfg, B_SWEEP, dtype)
+        profile_path(f"pod sweep B={B_SWEEP}",
+                     lambda: sweep.run_sweep(ebat, sparams_pod, 1, states0=pod_state), 1,
                      "period", gpu, by=op_kind)
         hand = vloops["g1_29dof_with_hand"]
         hstate = eng.init_state(hand.model, hand.cfg, B_VARIANT, dtype)

@@ -19,7 +19,8 @@ import numpy as np
 import torch
 
 from g1_locomotion_tpu_torch.engine.plant import PlantConfig
-from g1_locomotion_tpu_torch.engine.tick import EngineConfig, EngineState, ScenarioParams
+from g1_locomotion_tpu_torch.engine.tick import (PER_INSTANCE, EngineConfig, EngineState,
+                                                  ScenarioParams)
 from g1_locomotion_tpu_torch.gait.footsteps import FootstepConfig
 from g1_locomotion_tpu_torch.gait.schedule import GaitConfig
 from g1_locomotion_tpu_torch.models.robot import RobotModel
@@ -125,7 +126,8 @@ def footstep_config(steps: Any, *, device, dtype=torch.float32) -> FootstepConfi
 
 def scenario_params(params: Any, *, device, dtype=torch.float32) -> ScenarioParams:
     """ScenarioParams from the reference's (srbd, mpc_weights, wbid_gains,
-    gait, steps, v_cmd); the first three shared by the batch."""
+    gait, steps, v_cmd), each leaf shared or, where ``engine.tick.
+    PER_INSTANCE`` allows it, per instance (a leading batch axis)."""
     f = _fields(params)
     like = dict(device=device, dtype=dtype)
     return ScenarioParams(
@@ -133,6 +135,27 @@ def scenario_params(params: Any, *, device, dtype=torch.float32) -> ScenarioPara
         wbid_gains=wbid_gains(f["wbid_gains"], **like), gait=gait_config(f["gait"], **like),
         steps=footstep_config(f["steps"], **like), v_cmd=_tensor(f["v_cmd"], **like),
     )
+
+
+def scenario_batch(params: Any, *, device, dtype=torch.float32) -> ScenarioParams:
+    """ScenarioParams from a batch of the reference's, every leaf with a
+    leading batch axis (its ``parallel/sweep.randomize`` tiles each one): a
+    leaf whose rows are all equal is kept shared, one whose rows differ per
+    instance. Only the leaves of ``engine.tick.PER_INSTANCE`` may differ."""
+    def leaf(path, x):
+        x = np.asarray(x)
+        if np.array_equal(np.broadcast_to(x[:1], x.shape), x, equal_nan=True):
+            return x[0]
+        if path not in PER_INSTANCE:
+            raise ValueError(f"scenario_batch: {'.'.join(path)} differs between instances; "
+                             "the port takes it shared only")
+        return x
+
+    f = _fields(params)
+    groups = {k: {n: leaf((k, n), x) for n, x in _fields(v).items()}
+              for k, v in f.items() if k != "v_cmd"}
+    return scenario_params({**groups, "v_cmd": leaf(("v_cmd",), f["v_cmd"])},
+                           device=device, dtype=dtype)
 
 
 def plant_config(cfg: Any) -> PlantConfig:

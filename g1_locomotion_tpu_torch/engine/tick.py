@@ -16,12 +16,18 @@ SPD inverse in B1, and :func:`walking_config` (the factorization path)
 runs none. The plant, the planner and the gait FSM are plain tensor ops and
 ``torch.linalg.solve``.
 
-Not ported (see ROADMAP.md): ``EngineConfig.telemetry`` (the reference's
-host-callback stopwatch; it raises) and the MuJoCo scenarios.
+With ``EngineConfig.telemetry`` a period times its MPC solve and each
+tick's WBID solve (``TickLog.mpc_ms`` / ``wbid_ms``): on the card by a CUDA
+event pair around each, read once the period's work is queued, so the
+period adds no host sync before its end; on the CPU by the host clock.
+
+Not ported (see ROADMAP.md): the MuJoCo scenarios.
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -56,7 +62,7 @@ class EngineConfig(NamedTuple):
     ticks_per_mpc: int = 40
     max_swing_height: float = 0.05  # m
     com_height: float = 0.598       # standing CoM target
-    telemetry: bool = False         # per-stage host timing (not ported: raises)
+    telemetry: bool = False         # per-stage timing into TickLog.mpc_ms / wbid_ms
     log_q: bool = False             # TickLog.q carries the configuration
     torso_task: bool = False        # torso-orientation WBID task
     hand_task: bool = False         # hand carry-hold WBID tasks
@@ -68,9 +74,11 @@ class EngineConfig(NamedTuple):
 
 
 class ScenarioParams(NamedTuple):
-    """Per-scenario parameters. ``srbd``, ``mpc_weights`` and ``wbid_gains``
-    are shared by the batch (as the solvers take them); every ``gait`` and
-    ``steps`` field is 0-d or ``(B,)``, and ``v_cmd`` is (2,) or (B, 2)."""
+    """Per-scenario parameters. A leaf of :data:`PER_INSTANCE` is shared by
+    the batch (its shape there) or one per instance (a leading batch axis):
+    ``srbd.mass`` 0-d or (B,), ``srbd.inertia`` (3, 3) or (B, 3, 3),
+    ``wbid_gains.mu`` 0-d or (B,), every ``gait`` and ``steps`` field 0-d or
+    (B,), ``v_cmd`` (2,) or (B, 2). Every other leaf is shared."""
 
     srbd: srbd.SRBDParams
     mpc_weights: mpc.MPCWeights
@@ -78,6 +86,45 @@ class ScenarioParams(NamedTuple):
     gait: gs.GaitConfig
     steps: fs.FootstepConfig
     v_cmd: torch.Tensor  # commanded planar velocity
+
+    def batch(self) -> Optional[int]:
+        """The batch size of the per-instance leaves (None if all are shared)."""
+        for path, ndim in PER_INSTANCE.items():
+            leaf = _leaf(self, path)
+            if leaf.dim() > ndim:
+                return leaf.shape[0]
+        return None
+
+    def rows(self, rows: slice) -> "ScenarioParams":
+        """The instances ``rows`` of a batch; shared leaves stay shared."""
+        out = self
+        for path, ndim in PER_INSTANCE.items():
+            leaf = _leaf(out, path)
+            if leaf.dim() > ndim:
+                out = _replace_leaf(out, path, leaf[rows])
+        return out
+
+
+# The leaves of ScenarioParams that may be per instance, by path, with the
+# number of dims they have when shared.
+PER_INSTANCE = {
+    ("srbd", "mass"): 0, ("srbd", "inertia"): 2, ("wbid_gains", "mu"): 0,
+    **{("gait", f): 0 for f in gs.GaitConfig._fields},
+    **{("steps", f): 0 for f in fs.FootstepConfig._fields},
+    ("v_cmd",): 1,
+}
+
+
+def _leaf(tree, path):
+    for name in path:
+        tree = getattr(tree, name)
+    return tree
+
+
+def _replace_leaf(tree, path, value):
+    if len(path) == 1:
+        return tree._replace(**{path[0]: value})
+    return tree._replace(**{path[0]: _replace_leaf(getattr(tree, path[0]), path[1:], value)})
 
 
 def walking_config() -> EngineConfig:
@@ -252,9 +299,48 @@ class TickLog(NamedTuple):
     landing: torch.Tensor       # planned touchdown point
     mpc_pri_res: torch.Tensor
     wbid_pri_res: torch.Tensor
-    mpc_ms: torch.Tensor        # zeros (telemetry is not ported)
-    wbid_ms: torch.Tensor       # zeros
+    mpc_ms: torch.Tensor        # the period's MPC solve [ms] (0 unless cfg.telemetry)
+    wbid_ms: torch.Tensor       # this tick's WBID solve [ms] (0 unless cfg.telemetry)
     q: torch.Tensor             # (B, nq) with cfg.log_q, else (B, 0)
+
+
+class _StageClock:
+    """Stage timing of one period (``cfg.telemetry``): :func:`_timed`
+    brackets each timed stage. On the card each stage gets a CUDA event
+    pair, and :meth:`read_ms` waits for the last event only once the
+    period's work is queued; on the CPU the work runs as it is called, and
+    the host clock times it."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.spans = []
+
+    def mark(self):
+        if not self.cuda:
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    def read_ms(self, like: torch.Tensor) -> torch.Tensor:
+        """(stages,) the stages' times [ms] on like's device and dtype."""
+        if not self.cuda:
+            return torch.tensor([(b - a) * 1e3 for a, b in self.spans], dtype=like.dtype)
+        self.spans[-1][1].synchronize()
+        ms = torch.tensor([a.elapsed_time(b) for a, b in self.spans], dtype=like.dtype)
+        # From pinned memory the copy is queued without a stream sync.
+        return ms.pin_memory().to(like.device, non_blocking=True)
+
+
+@contextlib.contextmanager
+def _timed(clock: Optional[_StageClock]):
+    """Time the enclosed stage on ``clock`` (nothing when it is None)."""
+    if clock is None:
+        yield
+        return
+    start = clock.mark()
+    yield
+    clock.spans.append((start, clock.mark()))
 
 
 def _feet(model: RobotModel, idx: StackIndices, body_X):
@@ -325,10 +411,6 @@ class ControlLoop(wbid.ModelModule):
         super().__init__(model, idx)
         if cfg.mpc_delay not in (0, 1):
             raise ValueError("mpc_delay must be 0 (synchronous) or 1 (stale)")
-        if cfg.telemetry:
-            raise NotImplementedError(
-                "EngineConfig.telemetry (per-stage host timing) is not ported; ROADMAP.md "
-                "item A.14 plans CUDA events for it")
         self.cfg = cfg
         self._rebuild()
         q_stand = q_init_standing(self.model, 1)
@@ -343,7 +425,8 @@ class ControlLoop(wbid.ModelModule):
             self.hand_offsets = None
 
     # -- the MPC stage ---------------------------------------------------
-    def _mpc_stage(self, params: ScenarioParams, state: EngineState):
+    def _mpc_stage(self, params: ScenarioParams, state: EngineState,
+                   clock: Optional[_StageClock] = None):
         model, idx, cfg = self.model, self.idx, self.cfg
         body_X = rb.fk(model, state.q)
         x0 = srbd_state_from_wholebody(model, state.q, state.v, body_X)
@@ -380,9 +463,10 @@ class ControlLoop(wbid.ModelModule):
             lock_flag=lock_flag, swing_start=state.swing_start, z_apex=cfg.max_swing_height,
             plan_extras=cfg.plan_extras,
         )
-        sol = mpc.solve(cfg.mpc, params.mpc_weights, params.srbd, x0, plan.x_ref,
-                        plan.contact_hor, plan.c_hor, plan.p_ref, U_warm=state.U_warm,
-                        landing_mask=plan.landing_mask, hdot_sw=plan.hdot_geom)
+        with _timed(clock):
+            sol = mpc.solve(cfg.mpc, params.mpc_weights, params.srbd, x0, plan.x_ref,
+                            plan.contact_hor, plan.c_hor, plan.p_ref, U_warm=state.U_warm,
+                            landing_mask=plan.landing_mask, hdot_sw=plan.hdot_geom)
         landing = plan.landing
         if cfg.mpc.footstep_opt:
             # Fold in the jointly optimized landing offset, except while the
@@ -395,8 +479,8 @@ class ControlLoop(wbid.ModelModule):
         ), sol
 
     # -- one 1 kHz tick ----------------------------------------------------
-    def _tick(self, params: ScenarioParams, state: EngineState, alpha
-              ) -> Tuple[EngineState, TickLog]:
+    def _tick(self, params: ScenarioParams, state: EngineState, alpha,
+              clock: Optional[_StageClock] = None) -> Tuple[EngineState, TickLog]:
         """Gait FSM -> WBID references -> QP -> plant. ``alpha`` = (1 - a, a),
         a in (0, 1] the tick's phase within the MPC period: the CoM and base
         references interpolate x_opt0 -> x_opt1."""
@@ -468,7 +552,7 @@ class ControlLoop(wbid.ModelModule):
         base_R_ref = rot.rpy_to_matrix(x1[:, 0:3])
         base_angacc = (state.x_opt1[:, 6:9] - state.x_opt0[:, 6:9]) / cfg.mpc.dt
         gvec = const((0.0, 0.0, srbd.GRAVITY), q)
-        com_acc = torch.sum(state.u0.reshape(B, 4, 3), dim=1) / params.srbd.mass + gvec
+        com_acc = torch.sum(state.u0.reshape(B, 4, 3), dim=1) / params.srbd.mass[..., None] + gvec
         angmom_L = _mv(params.srbd.inertia, x1[:, 6:9])
         angmom_Ldot = _mv(params.srbd.inertia, base_angacc)
 
@@ -496,8 +580,9 @@ class ControlLoop(wbid.ModelModule):
             torso_R=base_R_ref if cfg.torso_task else None, hand_pos=hand_pos,
             posture_legs_scale=posture_legs_scale,
         )
-        sol = wbid.solve(model, idx, cfg.wbid, params.wbid_gains, q, state.v, refs,
-                         body_X=body_X)
+        with _timed(clock):
+            sol = wbid.solve(model, idx, cfg.wbid, params.wbid_gains, q, state.v, refs,
+                             body_X=body_X)
 
         # Whole-body plant, the active contact points pinned.
         q_new, v_new, _ = plant_mod.constrained_step(
@@ -583,7 +668,8 @@ class ControlLoop(wbid.ModelModule):
         period's log (B, ticks, ...))."""
         cfg = self.cfg
         prev = state
-        state, mpc_sol = self._mpc_stage(params, state)
+        clock = _StageClock(state.q.device) if cfg.telemetry else None
+        state, mpc_sol = self._mpc_stage(params, state, clock)
         if cfg.mpc_delay == 1:
             # Stale cadence: this period runs on the previous period's
             # solution; the first period applies its own.
@@ -599,12 +685,17 @@ class ControlLoop(wbid.ModelModule):
             )
         logs: List[TickLog] = []
         for i in range(cfg.ticks_per_mpc):
-            state, log = self._tick(params, state, self._alpha(i, state.q.dtype))
+            state, log = self._tick(params, state, self._alpha(i, state.q.dtype), clock)
             logs.append(log)
         log = TickLog(*(torch.stack(f, dim=1) for f in zip(*logs)))
         T = cfg.ticks_per_mpc
-        log = log._replace(mpc_pri_res=mpc_sol.pri_res[:, None].expand(-1, T),
-                           mpc_ms=torch.zeros_like(log.mpc_ms))
+        log = log._replace(mpc_pri_res=mpc_sol.pri_res[:, None].expand(-1, T))
+        if clock is not None:
+            # The MPC solve's time on every tick of the period, each tick's
+            # own WBID solve's.
+            ms = clock.read_ms(state.q)
+            log = log._replace(mpc_ms=ms[0].expand(log.mpc_ms.shape),
+                               wbid_ms=ms[None, 1:].expand(log.wbid_ms.shape))
         return state, log
 
     def rollout(self, state: EngineState, params: ScenarioParams, n_periods: int

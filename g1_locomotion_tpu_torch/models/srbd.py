@@ -51,8 +51,11 @@ GRAVITY = -9.80665  # state element 12
 
 
 class SRBDParams(NamedTuple):
-    mass: torch.Tensor     # scalar
-    inertia: torch.Tensor  # (3, 3) body-frame rotational inertia
+    """SRBD parameters: ``mass`` 0-d (shared by a batch) or (B,) and
+    ``inertia`` (3, 3) or (B, 3, 3), one per instance; ``m_swing`` shared."""
+
+    mass: torch.Tensor     # 0-d or (B,)
+    inertia: torch.Tensor  # (3, 3) or (B, 3, 3) body-frame rotational inertia
     # Effective swing-limb point mass [kg] for the angular-momentum preview
     # (0 = off); see the reference's SRBDParams.m_swing.
     m_swing: Union[torch.Tensor, float] = 0.0
@@ -95,10 +98,20 @@ def params_from_model(model: RobotModel, q: torch.Tensor) -> SRBDParams:
                       m_swing=torch.zeros((), dtype=q.dtype, device=q.device))
 
 
+def _per_instance(x: torch.Tensor, batch_ndim: int, shared_ndim: int) -> torch.Tensor:
+    """A parameter shared by the batch (``shared_ndim`` dims) as it is, or one
+    per instance ((B, ...)) with its batch axis aligned to the leading axis
+    of ``batch_ndim`` batch dims: (B, 1, ..., 1, ...)."""
+    if x.dim() == shared_ndim:
+        return x
+    return x.reshape(x.shape[:1] + (1,) * (batch_ndim - 1) + x.shape[1:])
+
+
 def _world_inertia(params: SRBDParams, yaw: torch.Tensor, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(Rz, I_w = Rz I_b Rz^T), batched over yaw's shape."""
+    """(Rz, I_w = Rz I_b Rz^T), batched over yaw's shape (the batch axis
+    first)."""
     Rz = yaw_matrix(yaw).to(dtype)
-    I_w = Rz @ params.inertia.to(dtype) @ Rz.mT
+    I_w = Rz @ _per_instance(params.inertia, yaw.dim(), 2).to(dtype) @ Rz.mT
     return Rz, I_w
 
 
@@ -123,7 +136,8 @@ def continuous_matrices(
     B[..., 6:9, :] = torch.cat(
         [I_w_inv @ skew(r[..., i, :]) for i in range(NC)], dim=-1
     )
-    B[..., 9:12, :] = (eye3 * (1.0 / params.mass)).repeat(1, NC)
+    inv_m = 1.0 / _per_instance(params.mass, len(batch), 0)
+    B[..., 9:12, :] = torch.cat([eye3 * inv_m[..., None, None]] * NC, dim=-1)
     return A, B
 
 

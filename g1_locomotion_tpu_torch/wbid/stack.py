@@ -471,11 +471,12 @@ def build_qp(model: RobotModel, idx: StackIndices, gains: WBIDGains, q: torch.Te
     # per contact, 5 cone rows (a swing contact's rewritten into f = 0
     # equalities, as the reference's switch_procedure boxes it to zero,
     # ros_run_simulation.py:243) and 2 tangential box rows.
-    mu = gains.mu
+    # mu 0-d (shared) or (B,) (one per instance), as (1, 1) or (B, 1, 1).
+    mu = gains.mu[..., None, None]
     if fast:
         act = refs.contact_active.index_select(1, idx.contact_foot)  # (B, NF)
         on = act > 0.5
-        C_cone = torch.where(on[..., None, None], idx.cone_T0 - mu * idx.cone_Tmu,
+        C_cone = torch.where(on[..., None, None], idx.cone_T0 - mu[..., None] * idx.cone_Tmu,
                              idx.cone_Teq)
         zeros5 = q.new_zeros((B, NF, 5))
         l_cone = torch.where(on[..., None], torch.cat(

@@ -38,7 +38,7 @@ class WBIDGains(NamedTuple):
     w_swing: torch.Tensor
     w_wrench: torch.Tensor        # per-contact wrench tracking (wbid.py:179-182)
     w_wrench_total: torch.Tensor  # (3,) per-axis net-contact-force tracking
-    mu: torch.Tensor              # friction coefficient (wbid.py:17)
+    mu: torch.Tensor              # friction coefficient (wbid.py:17), 0-d or (B,)
     fz_min: torch.Tensor          # stance wrench limits (wbid.py:123-124)
     fz_max: torch.Tensor
     fxy_max: torch.Tensor

@@ -153,6 +153,3 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         teng.default_scenario()
-    model = load_robot("g1_23dof", device=CPU, dtype=F64)
-    with pytest.raises(NotImplementedError, match="A.14"):
-        teng.ControlLoop(model, teng.EngineConfig(telemetry=True))

@@ -1,5 +1,5 @@
 """The JAX package at float32 on the CPU, on the chains that chip_smoke.py's
-phases 7, 8, 10, 11 and 13 drive the PyTorch port through: the largest
+phases 7, 8, 10, 11, 13 and 15 drive the PyTorch port through: the largest
 value of each invariant it gives there. chip_smoke.py holds the port to
 twice these (PERIOD_BOUNDS, SRBD_BOUNDS).
 
@@ -25,7 +25,15 @@ Cases (all when none is named):
   kicked laterally at period 60 (``chip_smoke.srbd_kicks``), vmapped over
   the first ``SRBD_BOUNDS_B`` of phase 10's 4096 instances;
 * ``srbd_serving`` (phase 11): the same loop with ``polish_kernel`` (the
-  Pallas kernels in interpret mode), 50 periods, B = 1, no kick.
+  Pallas kernels in interpret mode), 50 periods, B = 1, no kick;
+* ``sweep`` (phase 15): the pod sweep's domain-randomized batch as the
+  port draws it (``parallel/sweep.randomize``, a seeded CPU generator;
+  SRBD mass and inertia, WBID mu, swing duration, step length and v_cmd per
+  instance), all 4096 vmapped ``SWEEP_BOUNDS_B`` at a time through
+  ``SWEEP_PERIODS`` periods of the default ``EngineConfig``;
+* ``sweep_port``: not the JAX package but the port, at f32 on the CPU, on
+  the first ``SWEEP_BOUNDS_B`` of those scenarios (beside the JAX
+  package's maxima on the same ones, which ``sweep`` prints for each chunk).
 
 The control-period invariants (``chip_smoke.period_maxima``): MPC and WBID
 pri_res, the largest force on a swinging foot's contacts, the largest
@@ -61,6 +69,7 @@ from g1_locomotion_tpu.ops import pallas_lin  # noqa: E402
 
 F32 = jnp.float32
 SRBD_BOUNDS_B = 512  # phase 10's first instances run here
+SWEEP_BOUNDS_B = 512  # phase 15: scenarios a compiled chunk takes
 
 
 def serving(cfg):
@@ -114,6 +123,75 @@ def srbd_maxima(cfg, periods: int, batch: int) -> dict:
     return cs.srbd_maxima(log)
 
 
+def sweep_maxima(chunk: int) -> dict:
+    """Phase 15's pod sweep: the port's own randomized batch (its
+    ``parallel/sweep.randomize`` of ``SweepSpec()``'s 4096 scenarios on a
+    CPU generator of seed ``chip_smoke.SWEEP_SEED``, through numpy), every
+    leaf tiled and vmapped as the JAX package's sweep does, ``chunk``
+    scenarios at a time through one compiled program; the default
+    ``EngineConfig``, ``chip_smoke.SWEEP_PERIODS`` periods from
+    ``init_state``. The maxima over all the scenarios."""
+    import torch
+
+    from g1_locomotion_tpu_torch.engine import tick as teng
+    from g1_locomotion_tpu_torch.parallel import sweep as tsweep
+
+    draw = tsweep.randomize(tsweep.SweepSpec(), torch.Generator().manual_seed(cs.SWEEP_SEED),
+                            teng.default_scenario(device="cpu", dtype=torch.float32))
+    model = load_robot("g1_23dof", dtype=F32)
+    cfg = eng.EngineConfig(log_q=True)
+    rollout = eng.make_rollout(model, cfg)
+    state = eng.init_state(model, cfg, F32)
+    run = jax.jit(jax.vmap(lambda p: rollout(state, p, cs.SWEEP_PERIODS)))
+    base = jax.tree_util.tree_map(lambda x: jnp.broadcast_to(x, (chunk,) + x.shape),
+                                  eng.default_scenario(F32))
+    mg = float(np.asarray(jnp.sum(model.mass))) * 9.80665
+    worst = None
+    for start in range(0, draw.batch(), chunk):
+        def rows(t):
+            return jnp.asarray(t[start:start + chunk].numpy(), F32)
+
+        params = base._replace(
+            srbd=base.srbd._replace(mass=rows(draw.srbd.mass), inertia=rows(draw.srbd.inertia)),
+            wbid_gains=base.wbid_gains._replace(mu=rows(draw.wbid_gains.mu)),
+            gait=base.gait._replace(swing_duration=rows(draw.gait.swing_duration)),
+            steps=base.steps._replace(step_length=rows(draw.steps.step_length)),
+            v_cmd=rows(draw.v_cmd))
+        _, log = run(params)
+        m = cs.period_maxima({k: np.asarray(v) for k, v in log._asdict().items()},
+                             np.asarray(model.tau_max), mg)
+        worst = m if worst is None else {k: (worst[k] + m[k] if k == "non_finite"
+                                             else max(worst[k], m[k])) for k in m}
+        print(f"sweep scenarios {start}-{start + chunk - 1}: {m}", file=sys.stderr, flush=True)
+    return worst
+
+
+def port_sweep_maxima(batch: int) -> dict:
+    """The port itself (torch, f32, on the CPU) on the first ``batch`` of
+    phase 15's scenarios, for the same maxima: where the two packages'
+    f32 rounding spreads differ."""
+    import torch
+
+    from g1_locomotion_tpu_torch.engine import tick as teng
+    from g1_locomotion_tpu_torch.models.robot import load_robot as load_port_robot
+    from g1_locomotion_tpu_torch.parallel import sweep as tsweep
+
+    cpu, f32 = torch.device("cpu"), torch.float32
+    model = load_port_robot("g1_23dof", device=cpu, dtype=f32)
+    loop = teng.ControlLoop(model, teng.EngineConfig(log_q=True))
+    params = tsweep.randomize(tsweep.SweepSpec(), torch.Generator().manual_seed(cs.SWEEP_SEED),
+                              teng.default_scenario(device=cpu, dtype=f32)).rows(slice(0, batch))
+    state = teng.init_state(model, loop.cfg, batch, f32)
+    tau_max, mg = model.tau_max.double().numpy(), float(model.total_mass) * 9.80665
+    worst = None
+    for _ in range(cs.SWEEP_PERIODS):
+        state, log = loop.period(state, params)
+        m = cs.period_maxima(cs.log_numpy(log), tau_max, mg)
+        worst = m if worst is None else {k: (worst[k] + m[k] if k == "non_finite"
+                                             else max(worst[k], m[k])) for k in m}
+    return worst
+
+
 CASES = {
     "serving": lambda: chain_maxima(load_robot("g1_23dof", dtype=F32),
                                     serving(eng.EngineConfig()), cs.SERVING_PERIODS),
@@ -121,6 +199,8 @@ CASES = {
     "g1_29dof": lambda: variant_maxima("g1_29dof"),
     "g1_29dof_with_hand": lambda: variant_maxima("g1_29dof_with_hand"),
     "srbd_batched": lambda: srbd_maxima(mpc.MPCConfig(), cs.SRBD_PERIODS, SRBD_BOUNDS_B),
+    "sweep": lambda: sweep_maxima(SWEEP_BOUNDS_B),
+    "sweep_port": lambda: port_sweep_maxima(SWEEP_BOUNDS_B),
     "srbd_serving": lambda: srbd_maxima(
         mpc.MPCConfig()._replace(qp=mpc.MPCConfig().qp._replace(polish_kernel=True)),
         cs.SRBD_SERVING_PERIODS, 1),

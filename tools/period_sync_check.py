@@ -6,7 +6,10 @@ On one CUDA card, one period of each of the three control-period
 configurations that chip_smoke.py drives (serving B = 1, the default
 configuration at B = 64, ``walking_config`` at float64, B = 1) and of the
 SRBD loop's two (``MPCConfig()`` at B = 64 with a kick, its serving chain
-at B = 1) under ``torch.cuda.set_sync_debug_mode("warn")``: every operation
+at B = 1), the serving period with ``EngineConfig.telemetry`` (CUDA events
+around its stages) and one period of ``parallel/sweep.run_sweep`` over a
+randomized batch of 64 (per-instance mass, inertia and mu; the statistics'
+reduction) under ``torch.cuda.set_sync_debug_mode("warn")``: every operation
 that synchronizes the host with the card warns, and this prints, per
 configuration, how many warnings each line of this repository's code that
 led to one gave. A period with none can be captured as one CUDA graph.
@@ -31,6 +34,7 @@ from g1_locomotion_tpu_torch.engine import tick as eng  # noqa: E402
 from g1_locomotion_tpu_torch.models.robot import load_robot  # noqa: E402
 from g1_locomotion_tpu_torch.mpc import srbd_loop as sl  # noqa: E402
 from g1_locomotion_tpu_torch.mpc.solver import MPCConfig  # noqa: E402
+from g1_locomotion_tpu_torch.parallel import sweep  # noqa: E402
 
 
 def serving(cfg):
@@ -55,6 +59,21 @@ def srbd_period(cfg, batch, device):
     kick = torch.tensor([0.0, 0.1, 0.0], device=device).expand(batch, 3)
     state = sl.init_loop_state(cfg, 0.598, batch=batch, device=device, dtype=torch.float32)
     return (lambda s: loop.period(s, params, kick)), state
+
+
+def sweep_period(batch, device):
+    """(one period of parallel/sweep.run_sweep over a randomized batch in the
+    default configuration, its initial state)."""
+    model = load_robot("g1_23dof", device=device, dtype=torch.float32)
+    loop = eng.ControlLoop(model, eng.EngineConfig())
+    params = sweep.randomize(sweep.SweepSpec(n_scenarios=batch), torch.Generator().manual_seed(0),
+                             eng.default_scenario(device=device, dtype=torch.float32))
+
+    def period(state):
+        final, _, stats = sweep.run_sweep(loop, params, 1, states0=state)
+        return final, stats
+
+    return period, eng.init_state(model, loop.cfg, batch, torch.float32)
 
 
 def check(label, period, state):
@@ -96,6 +115,10 @@ def main():
     check("SRBD loop (B = 64, f32)", *srbd_period(mcfg, 64, device))
     check("SRBD loop serving (B = 1, f32)", *srbd_period(
         mcfg._replace(qp=mcfg.qp._replace(polish_kernel=True)), 1, device))
+    check("serving with telemetry (B = 1, f32)", *control_period(
+        serving(eng.EngineConfig(telemetry=True)), 1, torch.float32, eng.default_scenario,
+        device))
+    check("sweep period (B = 64, f32)", *sweep_period(64, device))
 
 
 if __name__ == "__main__":
