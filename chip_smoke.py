@@ -26,11 +26,14 @@ Phases, each of which must pass:
    recorded from every main path (so at the shapes, and for B1 the strided
    views, they give it: the MPC's 120 / 200 at B = 4096 and, through the
    MPC class, at B = 1, the WBID's 41 / 80 and the variants' 47 / 92 and
-   61 / 120); where no instance of a recorded B1 layout is numerically SPD,
+   61 / 120, and at float64 the MuJoCo bridge's (1, 30 / 25 / 21 / 20));
+   B3 at m = 210 and B4 at n = 120, m = 210 (their shared-memory kernels)
+   from a serving solve with ``MPCConfig.roll_moment_max``; where no
+   instance of a recorded B1 layout is numerically SPD,
    a seeded SPD batch of that shape through the same strides instead; and
    B1-B3 also on random SPD systems at those widths; B1 also at float64 on
    seeded SPD batches (4096, n, n), n = 30, 25, 21, 20 (phase 0 prints its
-   registers and spills; a float64 spill is recorded, not a fault);
+   registers; a spill at either type is a fault);
 2. MPC throughput: one ``MPCSolver`` call at B = 4096 in the ``bench.py``
    configuration (matmul inverses, kernel B1); physical invariants; the
    first 256 instances against the plain-version path on the card;
@@ -103,12 +106,30 @@ Phases, each of which must pass:
     ``wbid_ms`` positive and finite, ``mpc_ms`` the same on a period's
     ticks, the WBID solves no longer than the period's own events; the
     fields exactly 0 in phases 7 and 8 (telemetry off);
+17. the MuJoCo bridge (``engine/mujoco_bridge.py``) at float64 on the card,
+    B = 1, the default ``EngineConfig`` with
+    ``tests/test_engine_mujoco.py``'s standing scenario: the bridge's
+    controller replays ``tests/torch_mujoco_trace.npz`` (two periods of
+    MuJoCo measurements and the torques the JAX package's ``MujocoLoop``
+    computed from them; numpy, no MuJoCo): B1 ``<double, n>`` at exactly 28
+    launches a period's MPC solve and 18 a tick (n = 30 / 25, 20 / 21);
+    tau, the contact normal forces and the CoM per tick within
+    BRIDGE_TOL of the recorded ones; the second period through the plain
+    versions within BRIDGE_TOL of the kernels'; the tick's wall time (p50,
+    max). Where the ``mujoco`` package is installed (importlib finds it),
+    the closed loop in MuJoCo too: BRIDGE_LOOP_TICKS ticks of standing
+    through ``tools/torch_mujoco_bar.standing_bar`` (the invariants of
+    ``test_standing_balance_in_mujoco``; tests/test_torch_engine_mujoco.py
+    runs the same function on the CPU) and the exact B1 count; where it is
+    not, a line says so;
 4. timings (run after phase 14) with CUDA events (not counted as main-path
    launches): each kernel at each shape its paths give it, its plain version
    and, where one PyTorch call computes the same function, that call, in
    turns; beside them the card bound (bytes over the memory rate, operations
-   over the fp32 rate) and, for the kernels that a serving path launches as
-   one block, the one-SM bound; B4's fixed part and its slope per iteration;
+   over the fp32 rate, fp64 for B1 ``<double, n>``) and, for the kernels
+   that a serving path launches as one block, the one-SM bound (B1 at B = 1:
+   a warp's chain of n steps); B1 ``<double, n>`` also at the pod-sweep
+   demo's (4096, n, n); B4's fixed part and its slope per iteration;
    the MPC's throughput and serving latency, the WBID serving tick's p50 /
    p99 and the batched tick's ticks/s; the serving period's wall time (p50,
    max, per tick; from phase 7's chain) and the batched cascade's period
@@ -128,7 +149,7 @@ WBID pri_res, the force on a swinging foot's contacts, the deviation of the
 summed normal force from m g in double support and the base's tilt within
 PERIOD_BOUNDS (twice the JAX package's maxima, tools/period_invariant_bounds.py).
 
-Launch counters are zeroed right before each path (phases 2, 3, 5-16) and
+Launch counters are zeroed right before each path (phases 2, 3, 5-17) and
 read right after it; every kernel must have launched as often as that path
 calls it. The line before the last is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``. Any failure
@@ -340,6 +361,35 @@ GAIT_SWEEP_LAUNCHES = {"chol_inverse_base": 2 * 28, "gj_inverse": 0, "gj_solve":
 TELEMETRY_LAUNCHES = {
     "serving": {k: v // SERVING_PERIODS for k, v in SERVING_PERIOD_LAUNCHES.items()},
     "batched": CASCADE_LAUNCHES}
+# Phase 1: a serving solve with the roll-moment cap (MPCConfig.roll_moment_max,
+# one more row per knot: m = 210), whose B3 and B4 exceed the float32 tiles
+# and run the shared-memory kernels.
+ROLL_MOMENT_MAX = 20.0
+# Phase 17: the MuJoCo bridge at float64 (B = 1, the default EngineConfig,
+# tests/test_engine_mujoco.py's standing scenario) on the recorded trace of
+# the JAX package's MujocoLoop (tools/record_mujoco_trace.py).
+TRACE = "tests/torch_mujoco_trace.npz"
+BRIDGE_TICKS = 2 * PERIOD_TICKS  # two periods of the trace
+# The golden's tolerances (tau [N m], contact normal forces [N], CoM [m]):
+# on some ticks the WBID QP's polish takes another acceptance decision than
+# the JAX package's jitted tick, which moves tau by ~1e-2 N m (the JAX
+# package's own eager tick does so too: tools/record_mujoco_trace.py
+# --compare-eager); elsewhere the two agree to ~1e-12
+# (tests/test_torch_mujoco.py). The same bound holds the plain path.
+BRIDGE_TOL = {"tau": 5e-2, "fz": 0.5, "com": 1e-4}
+# The closed loop in MuJoCo, where installed: the standing bar of
+# tools/torch_mujoco_bar.py (test_standing_balance_in_mujoco's invariants).
+BRIDGE_LOOP_TICKS = 200
+PEAK_FP64_FLOPS = 34e12    # fp64 outside the tensor cores (H100 SXM data sheet)
+
+
+def bridge_launches(ticks: int) -> dict:
+    """B1 launches of `ticks` bridge ticks from tick 0: 28 per MPC solve
+    (every PERIOD_TICKS ticks), 18 a tick."""
+    return {"chol_inverse_base": 28 * -(-ticks // PERIOD_TICKS) + 18 * ticks,
+            "gj_inverse": 0, "gj_solve": 0, "admm_iterate": 0}
+
+
 REPLACES = {
     "chol_inverse_base": "g1_locomotion_tpu/ops/pallas_lin.py:118",
     "gj_inverse": "g1_locomotion_tpu/ops/pallas_lin.py:271",
@@ -773,7 +823,7 @@ def plain_kernels():
 
 def recording_kernels(calls, per_shape: int = 3):
     """Record each kernel's inputs on the main path: the first `per_shape`
-    calls of each input shape (for B2 on the serving path: the K of both
+    calls of each input shape and dtype (for B2 on the serving path: the K of both
     ADMM segments and the polish Hr) and, beyond them, the first call with
     each further layout (for B1: every strided view the recursion hands
     it), as calls[name] = [(shapes, args, strides)]. The
@@ -783,7 +833,9 @@ def recording_kernels(calls, per_shape: int = 3):
     def make(name, fn):
         def wrapper(*args, **kwargs):
             tensors = [a for a in (*args, *kwargs.values()) if isinstance(a, torch.Tensor)]
-            key = tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor))
+            # The input shapes and then the dtype (B1 runs at both types).
+            key = tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor)) + (
+                tensors[0].dtype,)
             strides = tuple(a.stride() for a in tensors)
             seen = calls.setdefault(name, [])
             if (sum(k == key for k, _, _ in seen) < per_shape
@@ -952,15 +1004,17 @@ def barrier_chain_us(lib_path, warps: int, device) -> float:
 
 
 def cases_b1(calls):
-    """B1's main-path inputs, widest block first: per block size the first
-    input with each layout the path gave it, then the same input dense, as
-    (K dense, (K strides, out strides) or None for dense)."""
+    """B1's main-path inputs, widest block first, float32 before float64:
+    per block size and dtype the first input with each layout the path gave
+    it, then the same input dense, as (K dense, (K strides, out strides) or
+    None for dense)."""
     recorded = calls["chol_inverse_base"]
     cases = []
-    for shape in sorted({key[0] for key, _, _ in recorded}, key=lambda s: -s[-1]):
+    for group in sorted({(key[0], key[-1]) for key, _, _ in recorded},
+                        key=lambda g: (-g[0][-1], g[1] == torch.float64, -g[0][0])):
         layouts = {}
         for key, args, strides in recorded:
-            if key[0] == shape:
+            if (key[0], key[-1]) == group:
                 layouts.setdefault(strides, args[0])
         cases += [(K, strides) for strides, K in layouts.items()]
         cases.append((next(iter(layouts.values())), None))
@@ -1118,7 +1172,7 @@ def compare_kernels(calls, gen_device) -> dict:
         res_ref = chol_residuals(K, W_ref)
         kept = res_ref <= 1e-2  # False where NaN
         if not bool(kept.all()):
-            print(f"B1 main-path blocks {key[0]}, K strides {k_stride}: "
+            print(f"B1 main-path blocks {key[0]} {K.dtype}, K strides {k_stride}: "
                   f"{int((~kept).sum())} instances not numerically SPD at {K.dtype} (plain "
                   f"version's residual above 1e-2 or not finite), left out")
         if not bool(kept.any()):
@@ -1126,7 +1180,8 @@ def compare_kernels(calls, gen_device) -> dict:
             W_ref = cuda_lin.chol_inverse_base_ref(K)
             res_ref = chol_residuals(K, W_ref)
             kept = res_ref <= 1e-2
-            print(f"B1 main-path blocks {key[0]}, K strides {k_stride}: no instance left; "
+            print(f"B1 main-path blocks {key[0]} {K.dtype}, K strides {k_stride}: no instance "
+                  f"left; "
                   f"a seeded SPD batch of that shape (cond 1e3) through the same strides "
                   f"instead, {int(kept.sum())} instances good to 1% on the plain version")
             if not bool(kept.any()):
@@ -1149,7 +1204,8 @@ def compare_kernels(calls, gen_device) -> dict:
             res = chol_residuals(K, W)[kept]
             W, W_kept = W[kept], W_ref[kept]
             note("chol_inverse_base", float((W - W_kept).abs().max()))
-            print(f"B1 main-path blocks {key[0]}, K strides {k_stride}, W strides {w_stride}, "
+            print(f"B1 main-path blocks {key[0]} {K.dtype}, K strides {k_stride}, "
+                  f"W strides {w_stride}, "
                   f"{label}, {int(kept.sum())} instances: rel err {rel_err(W, W_kept):.3e}; "
                   f"max|W'WK - I| kernel {float(res.max()):.3e}, plain "
                   f"{float(res_ref[kept].max()):.3e} (per instance kernel <= 4 plain + 1e-4)")
@@ -1363,6 +1419,114 @@ def telemetry_period(name: str, loop, batch: int, params, dtype) -> dict:
     return launches
 
 
+def load_trace() -> dict:
+    """The recorded MuJoCo trace of phase 17 (numpy arrays)."""
+    from pathlib import Path
+
+    with np.load(Path(__file__).resolve().parent / TRACE) as z:
+        return {k: z[k] for k in z.files}
+
+
+def bridge_replay(ctrl, trace: dict, ticks: range):
+    """Drive the bridge's controller through the trace's measurements at
+    `ticks`: (tau (n, nj), CoM (n, 3), contact normal forces (n, 4) as
+    numpy, wall ms per tick). A tick ends in tau's copy to the host, so the
+    host clock times it whole."""
+    taus, coms, fzs, ms = [], [], [], []
+    for t in ticks:
+        t0 = time.perf_counter()
+        tau, log = ctrl.step(trace["qpos"][t], trace["qvel"][t])
+        ms.append((time.perf_counter() - t0) * 1e3)
+        taus.append(tau)
+        coms.append(log.com[0])
+        fzs.append(log.forces[0, :, 2])
+    return (np.stack(taus), torch.stack(coms).double().cpu().numpy(),
+            torch.stack(fzs).double().cpu().numpy(), ms)
+
+
+def bridge_phase(model, device, gpu: str) -> dict:
+    """Phase 17: the MuJoCo bridge at float64 on the card. Returns the
+    replay's launches (and the closed loop's, where it ran)."""
+    import importlib.util
+    from pathlib import Path
+
+    from g1_locomotion_tpu_torch.engine import mujoco_bridge as mb
+    from g1_locomotion_tpu_torch.engine import tick as eng
+    from g1_locomotion_tpu_torch.ops import cuda_lin
+
+    trace = load_trace()
+    params = eng.mujoco_standing_scenario(device=device, dtype=torch.float64)
+    ctrl = mb.BridgeController(model, params=params)
+    ctrl.reset(trace["qpos"][0], trace["qvel"][0])
+    torch.cuda.synchronize()
+    cuda_lin.reset_launch_counts()
+    first = bridge_replay(ctrl, trace, range(PERIOD_TICKS))
+    snapshot = ctrl.state, ctrl.tick
+    second = bridge_replay(ctrl, trace, range(PERIOD_TICKS, BRIDGE_TICKS))
+    launches = cuda_lin.launch_counts()
+    got = [np.concatenate([a, b]) for a, b in zip(first[:3], second[:3])]
+    tick_ms = first[3] + second[3]
+    print(f"phase 17 MuJoCo bridge replay: {BRIDGE_TICKS} ticks of {TRACE} at float64 (B = 1, "
+          f"default EngineConfig); launches {launches}")
+    if launches != bridge_launches(BRIDGE_TICKS):
+        raise AssertionError(f"the bridge launched {launches}, expected "
+                             f"{bridge_launches(BRIDGE_TICKS)}")
+    err = {k: np.abs(g - trace[k][:BRIDGE_TICKS]).reshape(BRIDGE_TICKS, -1).max(axis=1)
+           for k, g in zip(("tau", "com", "fz"), got)}
+    if not all(np.isfinite(g).all() for g in got):
+        raise AssertionError("phase 17: non-finite torques, CoM or forces")
+    print(f"phase 17 replay against the JAX package's MujocoLoop: max |dtau| "
+          f"{err['tau'].max():.3e} N m (ticks within 1e-6: {int((err['tau'] <= 1e-6).sum())} "
+          f"of {BRIDGE_TICKS}), |dfz| {err['fz'].max():.3e} N, |dCoM| {err['com'].max():.3e} m "
+          f"(bounds {BRIDGE_TOL})")
+    if not all(err[k].max() <= tol for k, tol in BRIDGE_TOL.items()):
+        raise AssertionError("phase 17: the bridge's controller leaves the recorded trace")
+    # The second period again, through the plain versions.
+    plain = mb.BridgeController(model, params=params)
+    plain.state, plain.tick = snapshot
+    with plain_kernels():
+        ref = bridge_replay(plain, trace, range(PERIOD_TICKS, BRIDGE_TICKS))
+    dev = {"tau": float(np.abs(ref[0] - second[0]).max()),
+           "com": float(np.abs(ref[1] - second[1]).max()),
+           "fz": float(np.abs(ref[2] - second[2]).max())}
+    print(f"phase 17 second period, kernel path vs plain path: {dev} (bounds {BRIDGE_TOL})")
+    if not all(dev[k] <= BRIDGE_TOL[k] for k in dev):
+        raise AssertionError("phase 17: the bridge's kernel path differs from its plain path")
+    ms = sorted(tick_ms)
+    mpc_ms = [tick_ms[t] for t in range(0, BRIDGE_TICKS, PERIOD_TICKS)]
+    print(f"[{gpu}] MuJoCo bridge tick (B = 1, float64, default EngineConfig, the controller "
+          f"on the card): p50 {median(ms):.3f} ms, max {ms[-1]:.3f} ms, min {ms[0]:.3f} ms over "
+          f"{BRIDGE_TICKS} ticks (host clock, each tick ending in tau's copy to the host); the "
+          f"ticks with an MPC solve {', '.join('%.3f' % m for m in mpc_ms)} ms; the reference's "
+          f"budget 1 ms a tick; solve timers {ctrl.stats.export()}")
+    out = {"replay": launches}
+    if importlib.util.find_spec("mujoco") is None:
+        print("phase 17 closed loop in MuJoCo: the mujoco package is not installed on this "
+              "machine, so the closed loop is not run here (tests/test_torch_mujoco.py and "
+              "tests/test_torch_engine_mujoco.py run it on the CPU)")
+        return out
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    import torch_mujoco_bar
+
+    loop = mb.MujocoLoop(model, params=params)
+    torch.cuda.synchronize()
+    cuda_lin.reset_launch_counts()
+    t0 = time.perf_counter()
+    checks = torch_mujoco_bar.standing_bar(loop, BRIDGE_LOOP_TICKS)
+    wall = time.perf_counter() - t0
+    out["closed loop"] = cuda_lin.launch_counts()
+    print(f"phase 17 closed loop in MuJoCo: {BRIDGE_LOOP_TICKS} ticks in {wall:.3f} s; "
+          f"{ {k: v[0] for k, v in checks.items()} }; launches {out['closed loop']}")
+    if out["closed loop"] != bridge_launches(BRIDGE_LOOP_TICKS):
+        raise AssertionError(f"the closed loop launched {out['closed loop']}, expected "
+                             f"{bridge_launches(BRIDGE_LOOP_TICKS)}")
+    failed = {k: v for k, v in checks.items() if not v[2]}
+    if failed:
+        raise AssertionError(f"phase 17: the closed loop in MuJoCo misses the standing bar: "
+                             f"{failed}")
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -1391,7 +1555,7 @@ def main(argv) -> None:
     cuda_lin._lib()
     print(f"phase 0 build: {seconds:.1f} s -> {path.name}; {probe_seconds:.1f} s -> "
           f"{probe_path.name}")
-    entry, base_regs, f64_spills = "", {}, {}
+    entry, base_regs = "", {}
     for line in log.splitlines():
         if "Compiling entry" in line:
             entry = line
@@ -1400,25 +1564,17 @@ def main(argv) -> None:
         if ("spill" in line and any(k in entry for k in REGISTER_KERNELS)
                 and not line.strip().startswith(
                     "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")):
-            if base and base.group(1) == "d":
-                # B1 at float64 runs on no card path by default: its spills
-                # are recorded, not a fault.
-                f64_spills[int(base.group(2))] = line.strip()
-            else:
-                raise AssertionError(f"a kernel that keeps its matrix in registers spills: "
-                                     f"{entry.strip()} {line.strip()}")
+            raise AssertionError(f"a kernel that keeps its matrix in registers spills: "
+                                 f"{entry.strip()} {line.strip()}")
         regs = re.search(r"Used (\d+) registers", line)
         if base and regs:
             base_regs.setdefault(base.group(1), {})[int(base.group(2))] = int(regs.group(1))
         elif not base and ("registers" in line or "Compiling entry" in line or "spill" in line):
             print(f"  ptxas: {line.strip()}")
     for kind, regs in sorted(base_regs.items()):
-        spills = f64_spills if kind == "d" else {}
         print(f"  ptxas: chol_inv_base_kernel<{'float' if kind == 'f' else 'double'}, n> for n = "
               f"{min(regs)}..{max(regs)}: registers at n = 20 / 21 / 25 / 30 / 32: "
-              + " / ".join(str(regs.get(n)) for n in (20, 21, 25, 30, 32)) + "; "
-              + (f"spills at n = {sorted(spills)}: " + "; ".join(
-                  f"n = {n}: {spills[n]}" for n in sorted(spills)) if spills else "no spill"))
+              + " / ".join(str(regs.get(n)) for n in (20, 21, 25, 30, 32)) + "; no spill")
 
     thr_cfg, srv_cfg = configs()
     thr, srv = solver_for(thr_cfg, device, dtype), solver_for(srv_cfg, device, dtype)
@@ -1452,14 +1608,26 @@ def main(argv) -> None:
                                   eparams)
     B_SWEEP = sparams_pod.batch()
 
-    # Phase 1: record each kernel's main-path inputs (both MPC paths, one
-    # serving WBID tick, the batched WBID tick, one serving period, one
-    # batched period, one period of the pod sweep's batch, one period of each
-    # variant cascade, one update of the MPC class at B = 1; the SRBD loop's
-    # phases give the kernels the MPC paths' shapes), then hold each kernel
-    # against its plain version on them.
+    # Phase 1: record each kernel's main-path inputs (both MPC paths and the
+    # serving path with the roll-moment cap, one serving WBID tick, the
+    # batched WBID tick, one serving period, one batched period, one period
+    # of the pod sweep's batch, one period of each variant cascade, one
+    # update of the MPC class at B = 1, the MuJoCo bridge's first two ticks
+    # at float64; the SRBD loop's phases give the kernels the MPC paths'
+    # shapes), then hold each kernel against its plain version on them.
+    from g1_locomotion_tpu_torch.engine import mujoco_bridge as mb
+
+    robot64 = load_robot("g1_23dof", device=device, dtype=torch.float64)
+    srv_cap = solver_for(srv_cfg._replace(roll_moment_max=ROLL_MOMENT_MAX), device, dtype)
+    trace = load_trace()
+    bridge = mb.BridgeController(robot64, params=eng.mujoco_standing_scenario(
+        device=device, dtype=torch.float64))
+    bridge.reset(trace["qpos"][0], trace["qvel"][0])
     calls = {}
     with recording_kernels(calls):
+        run(srv_cap, inp, slice(0, B_RECORD))
+        for t in range(2):
+            bridge.step(trace["qpos"][t], trace["qvel"][t])
         run(thr, inp)
         run(srv, inp, slice(0, B_RECORD))
         serving_chain(wsrv, wsrv.model, wsrv.idx, device, dtype, ticks=1)
@@ -1474,6 +1642,18 @@ def main(argv) -> None:
         api.update(*api_args, x_current=api.x0)
     torch.cuda.synchronize()
     errs = compare_kernels(calls, device)
+    m_cap = 200 + srv_cfg.horizon
+    routes = {"gj_solve": cuda_lin.gj_plan("gj_solve", m_cap, dtype),
+              "admm_iterate": cuda_lin.admm_plan(120, m_cap, dtype)}
+    # B3's first input is S (1, m, m), B4's second A (1, m, n).
+    recorded = {"gj_solve": any(key[0][-1] == m_cap for key, _, _ in calls["gj_solve"]),
+                "admm_iterate": any(key[1][-2] == m_cap for key, _, _ in calls["admm_iterate"])}
+    print(f"phase 1 serving solve with roll_moment_max = {ROLL_MOMENT_MAX}: m = {m_cap}; B3 "
+          f"runs gj_smem_kernel ({routes['gj_solve'][1]} B of shared memory), B4 at n = 120 "
+          f"admm_smem_kernel ({routes['admm_iterate'][1]} B); both held above: {recorded}")
+    if any(tile for tile, _ in routes.values()) or not all(recorded.values()):
+        raise AssertionError("phase 1: the capped serving solve's B3 / B4 are not the "
+                             "shared-memory kernels, or were not recorded")
     print("phase 1 kernels vs plain versions: ok")
 
     # Phases 2 and 3: the main path, each path counted on its own.
@@ -1608,7 +1788,6 @@ def main(argv) -> None:
 
     # Phase 9: the validated walk at float64, the golden's first periods (no
     # kernel on this path).
-    robot64 = load_robot("g1_23dof", device=device, dtype=torch.float64)
     walk = eng.ControlLoop(robot64, eng.walking_config())
     wstate = eng.init_state(walk.model, walk.cfg, 1, torch.float64)
     wparams = eng.walking_scenario(device=device, dtype=torch.float64, n_steps=8.0,
@@ -1804,6 +1983,9 @@ def main(argv) -> None:
         tel_launches[name] = telemetry_period(name, eng.ControlLoop(robot, cfg._replace(
             telemetry=True)), batch, eparams, dtype)
 
+    # Phase 17: the MuJoCo bridge at float64 (kernel B1 <double, n> at B = 1).
+    bridge_paths = bridge_phase(robot64, device, gpu)
+
     paths = {"MPC throughput": thr_launches, "MPC serving": srv_launches,
              "WBID serving": wsrv_launches, "WBID batched": wbat_launches,
              "serving period": psrv_launches, "batched cascade": pbat_launches,
@@ -1811,7 +1993,8 @@ def main(argv) -> None:
              **{f"{v} cascade": var_launches[v] for v in VARIANTS}, "MPC class": api_launches,
              "pod sweep": {k: pod["launches"][0][k] + pod["launches"][1][k] for k in REPLACES},
              "gait sweep demo": gait_launches,
-             **{f"telemetry {k} period": v for k, v in tel_launches.items()}}
+             **{f"telemetry {k} period": v for k, v in tel_launches.items()},
+             **{f"MuJoCo bridge {k}": v for k, v in bridge_paths.items()}}
     launches = {name: sum(p[name] for p in paths.values()) for name in REPLACES}
     print(f"main-path launches: {launches} ("
           + "; ".join(f"{path} {count}" for path, count in paths.items()) + ")")
@@ -1933,6 +2116,9 @@ def main(argv) -> None:
     # instance. The kernel and the library call are timed in turns, ROUNDS
     # times REPS launches each, and the medians kept.
     ROUNDS, REPS = 5, 20
+    # B1 <double, n> at the pod-sweep demo's (4096, n, n): phase 1's batches.
+    b1_f64_batches = [random_spd(B_THROUGHPUT, n, 1e3, 200 + n, device, torch.float64)
+                      for n in B1_F64_SIZES]
     chain_us = {w: barrier_chain_us(probe_path, w, device) for w in sorted({GJ_WARPS, ADMM_WARPS, 0}, reverse=True)}
     for w, us in chain_us.items():
         print(f"[{gpu}] barrier chain, " + (f"one block of {w} warps" if w else "one warp")
@@ -1943,7 +2129,7 @@ def main(argv) -> None:
         kernel, plain = getattr(cuda_lin, name), cuda_lin.PLAIN[name]
         if name == "chol_inverse_base":
             cases = []
-            for K, strides in cases_b1(calls):
+            for K, strides in cases_b1(calls) + [(K, None) for K in b1_f64_batches]:
                 if strides is None:
                     k_view, w_view = K, torch.empty_like(K)
                     label = f"{tuple(K.shape)} dense"
@@ -1969,8 +2155,9 @@ def main(argv) -> None:
             k_ms, l_ms = median(k_all), (median(l_all) if lib else None)
             p_ms = cuda_ms(lambda: plain(*args), reps=5)
             need = work(name, args)
+            peak = PEAK_FP64_FLOPS if args[0].dtype == torch.float64 else PEAK_FP32_FLOPS
             bound_ms, bound_by = max((need["bytes"] / PEAK_BYTES_PER_S * 1e3, "bytes"),
-                                     (need["flops"] / PEAK_FP32_FLOPS * 1e3, "operations"))
+                                     (need["flops"] / peak * 1e3, "operations"))
             rows.setdefault(name, {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
                                    "bound_by": bound_by, "library_ms": l_ms})
             line = (f"[{gpu}] {name} at {label}: kernel {k_ms:.4f} ms "
@@ -1989,9 +2176,15 @@ def main(argv) -> None:
                          f"{chain_ms:.4f} ms), kernel / one-SM bound {k_ms / one_sm:.2f}, "
                          f"{k_ms / need['steps'] * 1e3:.3f} us per step")
             if name == "chol_inverse_base":
-                n = args[0].shape[-1]
+                b, n = args[0].shape[0], args[0].shape[-1]
                 line += (f"; a warp's chain of {n} column steps at {chain_us[0]:.4f} us: "
                          f"{n * chain_us[0] / 1e3:.6f} ms")
+                if b == 1:
+                    # One matrix is one warp on one SM: the larger of its
+                    # operations at 1/SM_COUNT of the rate and the chain.
+                    one_sm = max(need["flops"] / (peak / SM_COUNT) * 1e3, n * chain_us[0] / 1e3)
+                    line += (f"; one-SM bound {one_sm:.6f} ms, kernel / one-SM bound "
+                             f"{k_ms / one_sm:.2f}")
             print(line)
 
     # B4's fixed part (the launch, reading K^-1 and A, writing x, z, y) and its
@@ -2014,7 +2207,7 @@ def main(argv) -> None:
                           reps=REPS)
         print(f"[{gpu}] gj_inverse at {tuple(K2.shape)}: torch.linalg.cholesky_ex + "
               f"torch.cholesky_inverse (a pair) {ms_chol:.4f} ms")
-    for K1 in (K for K, strides in cases_b1(calls) if strides is None):
+    for K1 in [K for K, strides in cases_b1(calls) if strides is None] + b1_f64_batches:
         eye = torch.eye(K1.shape[-1], device=device, dtype=K1.dtype).expand_as(K1)
         ms_pair = cuda_ms(lambda: torch.linalg.solve_triangular(
             torch.linalg.cholesky_ex(K1).L, eye, upper=False), reps=5)

@@ -21,7 +21,8 @@ tick's WBID solve (``TickLog.mpc_ms`` / ``wbid_ms``): on the card by a CUDA
 event pair around each, read once the period's work is queued, so the
 period adds no host sync before its end; on the CPU by the host clock.
 
-Not ported (see ROADMAP.md): the MuJoCo scenarios.
+The MuJoCo bridge (``engine/mujoco_bridge.py``) drives the MPC stage and
+the tick of :class:`ControlLoop` itself, one tick per MuJoCo step.
 """
 
 from __future__ import annotations
@@ -220,6 +221,54 @@ def stale_walking_scenario(*, device=None, dtype=torch.float32, n_steps: float =
     return p._replace(gait=p.gait._replace(landing_lock=_scalar(p.v_cmd, 0.5)))
 
 
+def mujoco_walking_scenario(*, device=None, dtype=torch.float32, n_steps: float = 8.0,
+                            v_cmd=(0.1, 0.0)) -> ScenarioParams:
+    """walking_scenario for real MuJoCo contacts (pair with
+    :func:`walking_config`): the wider stance (0.16 m against 0.12) and the
+    longer double support (0.35 s against 0.25) that buy the lateral margin
+    real feet do not deliver in single support; 6 steps and the settle are
+    the regression point."""
+    p = walking_scenario(device=device, dtype=dtype, n_steps=n_steps, v_cmd=v_cmd)
+    like = p.v_cmd
+    return p._replace(
+        steps=p.steps._replace(step_width=_scalar(like, 0.16)),
+        gait=p.gait._replace(double_support_duration=_scalar(like, 0.35)),
+    )
+
+
+def mujoco_standing_scenario(*, device=None, dtype=torch.float32) -> ScenarioParams:
+    """Quiet standing for MuJoCo (the reference's MuJoCo standing tests,
+    tests/test_engine_mujoco.py:25-34): default_scenario with no steps and
+    stiffer orientation weights, which real unilateral contacts need."""
+    p = default_scenario(device=device, dtype=dtype)
+    like = p.v_cmd
+    Q = torch.tensor((40.0, 40.0, 50.0, 200.0, 200.0, 500.0, 0.5, 0.5, 0.5, 10.0, 10.0, 10.0,
+                      0.0), dtype=dtype, device=like.device)
+    return p._replace(gait=p.gait._replace(n_steps=_scalar(like, 0.0)),
+                      mpc_weights=mpc.MPCWeights(Q=Q, R=torch.full_like(p.mpc_weights.R, 1e-5)))
+
+
+def mujoco_nominal_config() -> EngineConfig:
+    """walking_config with the weight-transfer gate and DS slow-down
+    (``gait_gate``); pair with :func:`mujoco_nominal_scenario`."""
+    return walking_config()._replace(gait_gate=True)
+
+
+def mujoco_nominal_scenario(*, device=None, dtype=torch.float32, n_steps: float = 8.0,
+                            v_cmd=(0.1, 0.0)) -> ScenarioParams:
+    """walking_scenario at the nominal geometry (width 0.12 m, DS 0.25 s)
+    for MuJoCo, with the DS slow-down (gate window 0.4, gain 3, rate floor
+    0.5, DCM tolerance 0.02) and the swing-limb momentum preview (m_swing
+    1 kg)."""
+    p = walking_scenario(device=device, dtype=dtype, n_steps=n_steps, v_cmd=v_cmd)
+    like = p.v_cmd
+    return p._replace(
+        srbd=p.srbd._replace(m_swing=_scalar(like, 1.0)),
+        gait=p.gait._replace(gate_window=_scalar(like, 0.4), ds_slow_gain=_scalar(like, 3.0),
+                             ds_rate_min=_scalar(like, 0.5), gate_xi_tol=_scalar(like, 0.02)),
+    )
+
+
 def _has_waist_tilt(model: RobotModel) -> bool:
     return any(("waist_roll" in n) or ("waist_pitch" in n) for n in model.joint_names)
 
@@ -322,12 +371,18 @@ class _StageClock:
         event.record()
         return event
 
+    def spans_ms(self) -> List[float]:
+        """The stages' times [ms]; on the card after waiting for the last event."""
+        if not self.cuda:
+            return [(b - a) * 1e3 for a, b in self.spans]
+        self.spans[-1][1].synchronize()
+        return [a.elapsed_time(b) for a, b in self.spans]
+
     def read_ms(self, like: torch.Tensor) -> torch.Tensor:
         """(stages,) the stages' times [ms] on like's device and dtype."""
+        ms = torch.tensor(self.spans_ms(), dtype=like.dtype)
         if not self.cuda:
-            return torch.tensor([(b - a) * 1e3 for a, b in self.spans], dtype=like.dtype)
-        self.spans[-1][1].synchronize()
-        ms = torch.tensor([a.elapsed_time(b) for a, b in self.spans], dtype=like.dtype)
+            return ms
         # From pinned memory the copy is queued without a stream sync.
         return ms.pin_memory().to(like.device, non_blocking=True)
 

@@ -12,8 +12,9 @@ but are boxed to f = 0 by rewritten constraint rows.
 With ``MPCConfig.footstep_opt`` the upcoming landing's xy offset d is a QP
 decision too (two more variables, scaled by ``d_scale``, and two reach-box
 rows); ``hdot_sw`` adds the swing-limb momentum preview as an affine term of
-the prediction. Not ported (it raises NotImplementedError, see ROADMAP.md):
-``MPCConfig.roll_moment_max > 0``, measured negative in the reference.
+the prediction. ``MPCConfig.roll_moment_max > 0`` caps the roll moment of
+the contact forces about the CoM at every knot (one more row a knot; off by
+default: it was measured negative in the reference).
 """
 
 from __future__ import annotations
@@ -28,9 +29,6 @@ from g1_locomotion_tpu_torch.models import srbd
 from g1_locomotion_tpu_torch.models.srbd import NC, NU, NX
 from g1_locomotion_tpu_torch.ops import qp as qplib
 
-_NOT_PORTED = "is not ported yet (see ROADMAP.md, queue A)"
-
-
 class MPCConfig(NamedTuple):
     """Static MPC configuration (shapes depend on horizon); the reference's
     fields and defaults."""
@@ -43,7 +41,7 @@ class MPCConfig(NamedTuple):
     fz_min: float = 10.0       # min normal force in stance [N]
     fz_max: float = 1000.0     # max normal force [N]
     footstep_opt: bool = False  # landing offset d as a QP decision
-    roll_moment_max: float = 0.0  # hard roll-moment cap if > 0 (not ported)
+    roll_moment_max: float = 0.0  # hard roll-moment cap [N m] if > 0
     w_d: float = 300.0         # footstep_opt: penalty on the landing offset
     d_scale: float = 1e-3      # footstep_opt: QP units of the offset
     d_box: float = 0.05        # footstep_opt: reach box [m]
@@ -110,11 +108,6 @@ def _constraint_blocks(cfg: MPCConfig, dtype, device):
     return C_active, C_inactive
 
 
-def _check_ported(cfg: MPCConfig) -> None:
-    if cfg.roll_moment_max > 0.0:
-        raise NotImplementedError(f"MPCConfig.roll_moment_max > 0 {_NOT_PORTED}")
-
-
 def build_qp(
     cfg: MPCConfig,
     weights: MPCWeights,
@@ -134,7 +127,6 @@ def build_qp(
     """Assemble the batched condensed QP and the lifting matrices:
     (H, g, A, l, u, A_qp, B_qp, Ad, Bd, Ed, Wd); Ed (B, N, NX, 2) is None
     unless footstep_opt, Wd (B, N, NX) None without hdot_sw."""
-    _check_ported(cfg)
     N = cfg.horizon
     B = x0.shape[0]
     dtype, device = x0.dtype, x0.device
@@ -239,6 +231,28 @@ def build_qp(
         reach = cfg.d_box / cfg.d_scale
         l = torch.cat([l, l.new_full((B, 2), -reach)], dim=-1)
         u = torch.cat([u, u.new_full((B, 2), reach)], dim=-1)
+
+    if cfg.roll_moment_max > 0.0:
+        # Roll-moment cap |sum_i (r_ik x f_ik)_x| <= roll_moment_max per knot:
+        # (r x f)_x = r_y f_z - r_z f_y, so knot k's row has (0, -r_z, r_y)
+        # on each contact's forces, r from the knot's first step (k mb < N).
+        r_knot = r_hor[:, 0:N:mb]                                     # (B, K, NC, 3)
+        lever = torch.stack([torch.zeros_like(r_knot[..., 2]), -r_knot[..., 2],
+                             r_knot[..., 1]], dim=-1)
+        eye_k = torch.eye(K_knots, dtype=dtype, device=device)
+        M_rows = (eye_k[None, :, :, None, None] * lever[:, :, None]).reshape(
+            B, K_knots, K_knots * NU)
+        if E_qp is not None:
+            # d_y moves the landing contacts' lever: d(M_x)/d(d_y) is the
+            # landing's summed fz of the linearization forces (scaled as d).
+            fz_land = torch.einsum("bnc,bnc->bn", landing_mask.expand(B, N, NC),
+                                   f_nom.expand(B, N, NC, 3)[..., 2])
+            dcol = torch.stack([torch.zeros_like(fz_land[:, 0:N:mb]),
+                                fz_land[:, 0:N:mb] * cfg.d_scale], dim=-1)
+            M_rows = torch.cat([M_rows, dcol], dim=-1)
+        A_con = torch.cat([A_con, M_rows], dim=-2)
+        l = torch.cat([l, l.new_full((B, K_knots), -cfg.roll_moment_max)], dim=-1)
+        u = torch.cat([u, u.new_full((B, K_knots), cfg.roll_moment_max)], dim=-1)
 
     return H, g, A_con, l, u, A_qp, B_qp, Ad, Bd, Ed, Wd
 

@@ -363,3 +363,71 @@ def test_srbd_loop_period_makes_no_host_sync(cuda, polish_kernel):
         loop.period(state, params, kick)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.gpu
+def test_serving_solve_with_roll_moment_cap_on_card(cuda):
+    """A serving MPC solve (polish_kernel) with MPCConfig.roll_moment_max at
+    float32, B = 1: m = 210 rows, so B3 and B4 run their shared-memory
+    kernels (cuda_lin.gj_plan / admm_plan); B2 3, B3 2, B4 2 launches; u0
+    within 0.5 N of the CPU's plain path (chip_smoke.py's DU0_MAX_N)."""
+    from g1_locomotion_tpu_torch.models import srbd
+    from g1_locomotion_tpu_torch.mpc import solver as mpc
+    from g1_locomotion_tpu_torch.ops.qp import QPConfig
+
+    assert not cuda_lin.gj_plan("gj_solve", 210, torch.float32)[0]
+    assert not cuda_lin.admm_plan(120, 210, torch.float32)[0]
+    cfg = mpc.MPCConfig(horizon=10, roll_moment_max=20.0, qp=QPConfig(
+        iters=20, scaling_iters=0, rho=1.0, rho_segments=2, polish_rounds=2,
+        polish_kernel=True))
+    com = [0.0527, 0.01, 0.598]
+    x0 = torch.zeros((1, 13))
+    x0[0, 3:6] = torch.tensor(com)
+    x0[0, 12] = srbd.GRAVITY
+    contact = torch.ones((1, 10, 4))
+    contact[:, :, :2] = 0.0  # the left foot swings
+    feet = torch.tensor([[-0.05, 0.12, 0.0], [0.12, 0.12, 0.0], [-0.05, -0.12, 0.0],
+                         [0.12, -0.12, 0.0]])
+
+    def solve(device):
+        t = lambda x: x.to(device)  # noqa: E731
+        return mpc.solve(cfg, mpc.default_weights(device=device), srbd.default_params(
+            device=device), t(x0), t(x0[:, None].expand(1, 10, 13)), t(contact),
+            t(feet.expand(1, 10, 4, 3)), t(torch.tensor(com).expand(1, 10, 3)))
+
+    before = cuda_lin.launch_counts()
+    on_card = solve(cuda)
+    torch.cuda.synchronize()
+    after = cuda_lin.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "chol_inverse_base": 0, "gj_inverse": 3, "gj_solve": 2, "admm_iterate": 2}
+    on_cpu = solve(torch.device("cpu"))
+    assert float((on_card.u0.cpu() - on_cpu.u0).abs().max()) <= 0.5
+
+
+@pytest.mark.gpu
+def test_bridge_controller_float64_on_card_matches_cpu(cuda):
+    """The MuJoCo bridge's controller (engine/mujoco_bridge.BridgeController)
+    at float64 on the recorded trace's first two ticks: the card (kernel B1
+    <double, n>, 28 + 2 x 18 launches) against the CPU, tau within 5e-2 N m
+    (the golden's tolerance: the WBID polish's acceptance decision is taken
+    at the rounding level)."""
+    from pathlib import Path
+
+    from g1_locomotion_tpu_torch.engine import tick as eng
+    from g1_locomotion_tpu_torch.engine.mujoco_bridge import BridgeController
+    from g1_locomotion_tpu_torch.models.robot import load_robot
+
+    trace = np.load(Path(__file__).parent / "torch_mujoco_trace.npz")
+
+    def run(device):
+        model = load_robot("g1_23dof", device=device, dtype=torch.float64)
+        ctrl = BridgeController(model, params=eng.mujoco_standing_scenario(
+            device=device, dtype=torch.float64))
+        ctrl.reset(trace["qpos"][0], trace["qvel"][0])
+        return np.stack([ctrl.step(trace["qpos"][t], trace["qvel"][t])[0] for t in range(2)])
+
+    before = cuda_lin.launch_counts()["chol_inverse_base"]
+    on_card = run(cuda)
+    assert cuda_lin.launch_counts()["chol_inverse_base"] == before + 28 + 2 * 18
+    assert np.abs(on_card - run(torch.device("cpu"))).max() <= 5e-2

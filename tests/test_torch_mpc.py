@@ -173,9 +173,10 @@ def test_warm_start_from_the_plan_keeps_the_solution(slice_case):
 
 @pytest.mark.parametrize("feature", ["footstep_opt", "roll_moment_max", "hdot_sw"])
 def test_unported_features_raise(slice_case, feature):
-    """roll_moment_max > 0 (measured negative in the reference) still raises;
-    footstep_opt and the hdot_sw preview, once refused here too, are ported:
-    they run and give finite plans (held against the JAX package below)."""
+    """The three features the port once refused: footstep_opt, the hdot_sw
+    preview and the roll-moment cap (roll_moment_max > 0, measured negative
+    in the reference) are ported; each runs and gives finite plans (held
+    against the JAX package below and in tests/test_torch_roll_moment.py)."""
     port, _ = slice_case
     cfg = tmpc.MPCConfig()
     kwargs = {}
@@ -188,12 +189,8 @@ def test_unported_features_raise(slice_case, feature):
     t = port["inputs"]
     args = (cfg, port["weights"], port["params"], t["x0"], t["x_ref"], t["contact"],
             t["c_hor"], t["p_hor"])
-    if feature == "roll_moment_max":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmpc.solve(*args, **kwargs)
-    else:
-        sol = tmpc.solve(*args, **kwargs)
-        assert all(torch.isfinite(x).all() for x in sol)
+    sol = tmpc.solve(*args, **kwargs)
+    assert all(torch.isfinite(x).all() for x in sol)
 
 
 # footstep_opt and the swing-momentum preview, at the walk's horizon (N = 20:

@@ -242,15 +242,21 @@ def test_standing_state(tm, g1):
 
 def test_port_imports_no_jax():
     """Importing every module of the port leaves JAX and the JAX package out
-    of sys.modules (in a fresh interpreter)."""
+    of sys.modules (in a fresh interpreter), and MuJoCo and matplotlib too:
+    the bridge and the plots import them when they run (the card's machine
+    has neither)."""
     pkg = REPO / "g1_locomotion_tpu_torch"
     modules = sorted("g1_locomotion_tpu_torch." + ".".join(p.relative_to(pkg).with_suffix("").parts)
                      for p in pkg.rglob("*.py") if p.name != "__init__.py")
     assert "g1_locomotion_tpu_torch.wbid.stack" in modules and len(modules) >= 16
+    assert {f"g1_locomotion_tpu_torch.{m}" for m in (
+        "models.mjcf", "utils.pd", "engine.mujoco_bridge", "utils.viz", "utils.replay",
+        "api.demos", "api.cli")} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-            "or m == 'g1_locomotion_tpu' or m.startswith('g1_locomotion_tpu.'))\n"
+            "or m == 'g1_locomotion_tpu' or m.startswith('g1_locomotion_tpu.') "
+            "or m.split('.')[0] in ('mujoco', 'matplotlib'))\n"
             "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=REPO, timeout=120)

@@ -9,7 +9,10 @@ SRBD loop's two (``MPCConfig()`` at B = 64 with a kick, its serving chain
 at B = 1), the serving period with ``EngineConfig.telemetry`` (CUDA events
 around its stages) and one period of ``parallel/sweep.run_sweep`` over a
 randomized batch of 64 (per-instance mass, inertia and mu; the statistics'
-reduction) under ``torch.cuda.set_sync_debug_mode("warn")``: every operation
+reduction), and one period (40 ticks) of the MuJoCo bridge's controller at
+float64 on the recorded trace (``tests/torch_mujoco_trace.npz``; its one
+inherent sync a tick is tau's copy to the host, for MuJoCo), under
+``torch.cuda.set_sync_debug_mode("warn")``: every operation
 that synchronizes the host with the card warns, and this prints, per
 configuration, how many warnings each line of this repository's code that
 led to one gave. A period with none can be captured as one CUDA graph.
@@ -27,10 +30,12 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from g1_locomotion_tpu_torch._device import require_cuda  # noqa: E402
 from g1_locomotion_tpu_torch.engine import tick as eng  # noqa: E402
+from g1_locomotion_tpu_torch.engine.mujoco_bridge import BridgeController  # noqa: E402
 from g1_locomotion_tpu_torch.models.robot import load_robot  # noqa: E402
 from g1_locomotion_tpu_torch.mpc import srbd_loop as sl  # noqa: E402
 from g1_locomotion_tpu_torch.mpc.solver import MPCConfig  # noqa: E402
@@ -76,6 +81,24 @@ def sweep_period(batch, device):
     return period, eng.init_state(model, loop.cfg, batch, torch.float32)
 
 
+def bridge_period(device):
+    """(40 ticks of the MuJoCo bridge's controller at float64 on the recorded
+    trace's measurements, the settled start)."""
+    trace = np.load(REPO / "tests" / "torch_mujoco_trace.npz")
+    model = load_robot("g1_23dof", device=device, dtype=torch.float64)
+    ctrl = BridgeController(model, params=eng.mujoco_standing_scenario(device=device,
+                                                                        dtype=torch.float64))
+    ctrl.reset(trace["qpos"][0], trace["qvel"][0])
+
+    def period(start):
+        ctrl.state, ctrl.tick = start
+        for t in range(40):
+            ctrl.step(trace["qpos"][t], trace["qvel"][t])
+        return (ctrl.state, ctrl.tick), None
+
+    return period, (ctrl.state, 0)
+
+
 def check(label, period, state):
     state, _ = period(state)  # warm: first-use allocations and builds
     torch.cuda.synchronize()
@@ -83,17 +106,24 @@ def check(label, period, state):
 
     def record(message, category, filename, lineno, file=None, line=None):
         if "synchroniz" in str(message):
-            # The innermost frame of this repository's code that led there.
-            frames = [f for f in traceback.extract_stack()
+            # The innermost frame of this repository's code that led there;
+            # without one, the innermost frames of the stack.
+            stack = traceback.extract_stack()[:-1]
+            frames = [f for f in stack
                       if f.filename.startswith(str(REPO)) and f.filename != __file__]
             where = frames[-1] if frames else None
             counts[f"{Path(where.filename).relative_to(REPO)}:{where.lineno}" if where
-                   else f"{Path(filename).name}:{lineno}"] += 1
+                   else f"{Path(filename).name}:{lineno} (no frame of the package; stack: "
+                   + " <- ".join(f"{Path(f.filename).name}:{f.lineno} {f.name}"
+                                 for f in reversed(stack[-6:])) + ")"] += 1
 
     with warnings.catch_warnings():
         warnings.simplefilter("always")
-        warnings.showwarning = record
+        # Switched on before the hook: the first switch in a process warns
+        # once that the mode is a prototype ("... synchronizing operations"),
+        # which is no sync of the period.
         torch.cuda.set_sync_debug_mode("warn")
+        warnings.showwarning = record
         try:
             period(state)
         finally:
@@ -119,6 +149,7 @@ def main():
         serving(eng.EngineConfig(telemetry=True)), 1, torch.float32, eng.default_scenario,
         device))
     check("sweep period (B = 64, f32)", *sweep_period(64, device))
+    check("MuJoCo bridge controller, 40 ticks (B = 1, f64)", *bridge_period(device))
 
 
 if __name__ == "__main__":
