@@ -21,24 +21,32 @@ Phases, each of which must pass:
 0. build the four CUDA kernels from ``g1_locomotion_tpu_torch/csrc`` (and,
    beside them, the barrier probe that measures the chains of dependent
    steps); the kernels that keep their matrices in registers (B1, the tiles
-   of B2, B3 and B4) must not spill;
+   of B2, B3 and B4, B3's cluster tile, B4's tile at 13 and 14 rows of A a
+   thread) must not spill, and their registers are printed;
 1. each kernel against its plain PyTorch version on the card, on inputs
    recorded from every main path (so at the shapes, and for B1 the strided
    views, they give it: the MPC's 120 / 200 at B = 4096 and, through the
    MPC class, at B = 1, the WBID's 41 / 80 and the variants' 47 / 92 and
    61 / 120, and at float64 the MuJoCo bridge's (1, 30 / 25 / 21 / 20));
-   B3 at m = 210 and B4 at n = 120, m = 210 (their shared-memory kernels)
-   from a serving solve with ``MPCConfig.roll_moment_max``; where no
+   B3 at m = 210 (its two-CTA cluster tile) and B4 at n = 120, m = 210 (its
+   tile with 14 rows of A a thread) from a serving solve with
+   ``MPCConfig.roll_moment_max``, whose routes the plans must name; where no
    instance of a recorded B1 layout is numerically SPD,
    a seeded SPD batch of that shape through the same strides instead; and
-   B1-B3 also on random SPD systems at those widths; B1 also at float64 on
+   B1-B3 also on random SPD systems at those widths, B3's cluster tile at
+   m = 209, 210, 224, 240 with B = 1 and 150 (more clusters than the card
+   has pairs of SMs), B4's wide tile on seeded QPs at (n, m) = (120, 209),
+   (120, 210), (128, 224); B1 also at float64 on
    seeded SPD batches (4096, n, n), n = 30, 25, 21, 20 (phase 0 prints its
    registers; a spill at either type is a fault);
 2. MPC throughput: one ``MPCSolver`` call at B = 4096 in the ``bench.py``
    configuration (matmul inverses, kernel B1); physical invariants; the
    first 256 instances against the plain-version path on the card;
 3. MPC serving: 22 data-dependent B = 1 solves in the
-   ``tools/bench_latency.py`` configuration (kernels B2, B3, B4);
+   ``tools/bench_latency.py`` configuration (kernels B2, B3, B4); then the
+   same chain with ``MPCConfig.roll_moment_max`` (m = 210: B3 on the
+   cluster tile, B4 on the 14-row tile, each launch counted by route), its
+   invariants, and its last solve against the plain-version path;
 5. WBID serving: 40 data-dependent B = 1 ticks (one control period: 20 in
    double support, 20 with the left foot swinging; v += qddot dt,
    q = integrate_q(q, v, dt)) in the serving configuration
@@ -128,8 +136,15 @@ Phases, each of which must pass:
    turns; beside them the card bound (bytes over the memory rate, operations
    over the fp32 rate, fp64 for B1 ``<double, n>``) and, for the kernels
    that a serving path launches as one block, the one-SM bound (B1 at B = 1:
-   a warp's chain of n steps); B1 ``<double, n>`` also at the pod-sweep
+   a warp's chain of n steps; B3's cluster tile the two-SM bound: operations
+   at 2/132 of the rate, or m steps of the block barrier's chain, beside
+   what m steps of the probe's cluster chain would take);
+   at the roll-moment cap's shapes also the shared-memory kernel that ran
+   them before, and at B3's tile shapes its cluster tile, in turns; B1
+   ``<double, n>`` also at the pod-sweep
    demo's (4096, n, n); B4's fixed part and its slope per iteration;
+   the capped serving solve's host-clock p50 and its device time (CUDA
+   events, queued behind a busy card);
    the MPC's throughput and serving latency, the WBID serving tick's p50 /
    p99 and the batched tick's ticks/s; the serving period's wall time (p50,
    max, per tick; from phase 7's chain) and the batched cascade's period
@@ -151,8 +166,11 @@ PERIOD_BOUNDS (twice the JAX package's maxima, tools/period_invariant_bounds.py)
 
 Launch counters are zeroed right before each path (phases 2, 3, 5-17) and
 read right after it; every kernel must have launched as often as that path
-calls it. The line before the last is a JSON object with one entry per
-kernel; the last line is ``{"ok": true, "device": {...}}``. Any failure
+calls it, and every path but phase 3's capped chain only by the routes the
+kernels took before B3's cluster tile and B4's 14-row tile
+(``cuda_lin.route_counts()``). The line before the last is a JSON object with one entry per
+kernel (its launches by route, and every timed shape with its route); the
+last line is ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero, and so does a machine without a CUDA device.
 ``--profile`` adds ``torch.profiler`` passes over 50 MPC serving solves, 3
 MPC throughput batches, the SPD inverse alone, 50 WBID serving ticks, 3
@@ -202,10 +220,13 @@ SM_COUNT = 132
 GJ_WARPS = 16    # warps per block of B2 / B3 (csrc/lin_kernels.cu)
 ADMM_WARPS = 16  # of B4
 # The kernels that hold their matrices in registers: a spill there is a fault.
-REGISTER_KERNELS = ("gj_tile_kernel", "chol_inv_base_kernel", "admm_tile_kernel")
+REGISTER_KERNELS = ("gj_tile_kernel", "gj_cluster_kernel", "chol_inv_base_kernel",
+                    "admm_tile_kernel")
 # Clocks the card is kept busy while the launches to be timed queue up
 # behind (a few ms), so that the events see device time only.
 BUSY_CYCLES = 8_000_000
+# For a whole B = 1 serving solve, which takes the host ~5-9 ms to enqueue.
+SOLVE_BUSY_CYCLES = 60_000_000
 # The WBID tick (phases 5 and 6): the G1 23-DoF, nv = 29, nx = 41, m = 80.
 WBID_DT = 0.001            # control tick [s]
 WBID_TICKS = 40            # one control period of serving ticks
@@ -361,10 +382,20 @@ GAIT_SWEEP_LAUNCHES = {"chol_inverse_base": 2 * 28, "gj_inverse": 0, "gj_solve":
 TELEMETRY_LAUNCHES = {
     "serving": {k: v // SERVING_PERIODS for k, v in SERVING_PERIOD_LAUNCHES.items()},
     "batched": CASCADE_LAUNCHES}
-# Phase 1: a serving solve with the roll-moment cap (MPCConfig.roll_moment_max,
-# one more row per knot: m = 210), whose B3 and B4 exceed the float32 tiles
-# and run the shared-memory kernels.
+# Phases 1 and 3: serving solves with the roll-moment cap
+# (MPCConfig.roll_moment_max, one more row per knot: m = 210), past the
+# float32 tiles of B3 and B4 at 13 rows a thread: B3 runs its two-CTA cluster
+# tile, B4 its tile with 14 rows of A a thread. Phase 3's capped chain
+# launches as the serving chain, and by these routes only.
 ROLL_MOMENT_MAX = 20.0
+CAPPED_ROUTES = {"gj_solve": "cluster", "admm_iterate": "tile14"}
+CAPPED_SAMPLES = 200  # timed capped serving solves (host clock)
+# Phase 1: B3's cluster tile on seeded SPD systems at its edges and the
+# cap's width, at B = 1 and at more clusters than the card has pairs of SMs;
+# B4's 14-row tile on seeded QPs (n, m).
+B3_CLUSTER_CASES = [(m, b) for m in (209, 210, 224, 240) for b in (1, 150)]
+B4_WIDE_CASES = [(120, 209), (120, 210), (128, 224)]
+CLUSTER_SMS = 2  # SMs of B3's cluster tile
 # Phase 17: the MuJoCo bridge at float64 (B = 1, the default EngineConfig,
 # tests/test_engine_mujoco.py's standing scenario) on the recorded trace of
 # the JAX package's MujocoLoop (tools/record_mujoco_trace.py).
@@ -396,6 +427,27 @@ REPLACES = {
     "gj_solve": "g1_locomotion_tpu/ops/pallas_lin.py:215",
     "admm_iterate": "g1_locomotion_tpu/ops/pallas_lin.py:374",
 }
+
+
+# Every path but the capped serving chain takes the routes the kernels took
+# before the cluster and 14-row tiles (cuda_lin.route_counts()).
+EARLIER_ROUTES = {"warp", "tile", "tile13"}
+ROUTE_LAUNCHES: dict = {}  # {kernel: {route: launches}} over every path read
+
+
+def read_counts(routes=EARLIER_ROUTES) -> dict:
+    """One path's launches (since the last cuda_lin.reset_launch_counts()),
+    as cuda_lin.launch_counts() gives them; their routes are added to
+    ROUTE_LAUNCHES, and with `routes` any other route is a fault."""
+    from g1_locomotion_tpu_torch.ops import cuda_lin
+
+    for name, by_route in cuda_lin.route_counts().items():
+        if routes is not None and set(by_route) - routes:
+            raise AssertionError(f"{name} took routes {by_route}, expected only {routes}")
+        for route, count in by_route.items():
+            total = ROUTE_LAUNCHES.setdefault(name, {})
+            total[route] = total.get(route, 0) + count
+    return cuda_lin.launch_counts()
 
 
 def gpu_line() -> str:
@@ -884,17 +936,19 @@ def check_invariants(sol, contact, label: str) -> None:
           f"dua_res max {float(sol.dua_res.max()):.3e}")
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2, queue_ahead: bool = False) -> float:
+def cuda_ms(fn, reps: int, warmup: int = 2, queue_ahead: bool = False,
+            busy_cycles: int = BUSY_CYCLES) -> float:
     """Mean device time of fn() in ms, CUDA events around `reps` calls. With
-    `queue_ahead` the card is first kept busy for a few ms, so that the calls
-    queue up behind and run back to back whatever the host takes to make
-    them (for calls of a few us that enqueue without waiting for the card)."""
+    `queue_ahead` the card is first kept busy for `busy_cycles` clocks, so
+    that the calls queue up behind and run back to back whatever the host
+    takes to make them (for calls that enqueue without waiting for the
+    card, and take the host less than that)."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     if queue_ahead:
-        torch.cuda._sleep(BUSY_CYCLES)
+        torch.cuda._sleep(busy_cycles)
     start.record()
     for _ in range(reps):
         fn()
@@ -935,9 +989,13 @@ def random_spd(b: int, n: int, cond: float, seed: int, device,
 def work(name: str, args) -> dict:
     """What one call of kernel `name` on `args` must do at the least: bytes
     (each input read once, each output written once), floating-point
-    operations, and, for the kernels that run one instance as one block, the
-    dependent steps of the chain (each at least one exchange through shared
-    memory and one block barrier) with the block's warps."""
+    operations, and, for the kernels that run one instance as one block (or
+    one cluster), the dependent steps of the chain (each at least one
+    exchange through shared memory and one barrier), which chain of the
+    barrier probe bounds a step (`chain`: a block's warps, or "cluster"), and
+    the SMs one instance runs on (`sms`)."""
+    from g1_locomotion_tpu_torch.ops import cuda_lin
+
     size = args[0].element_size()
     if name == "chol_inverse_base":
         b, n, _ = args[0].shape
@@ -946,14 +1004,17 @@ def work(name: str, args) -> dict:
     if name == "gj_inverse":
         b, m, _ = args[0].shape
         return {"bytes": 2 * b * m * m * size, "flops": b * 2 * m**3,
-                "steps": m, "warps": GJ_WARPS}
+                "steps": m, "chain": GJ_WARPS, "sms": 1}
     if name == "gj_solve":
         b, m, _ = args[0].shape
         # The least for one right-hand side: elimination below the diagonal
         # (2/3 m^3) and two triangular solves (4 m^2, dropped); the kernel's
-        # Gauss-Jordan order does m^3.
+        # Gauss-Jordan order does m^3. The cluster tile runs on two SMs; a
+        # pivot's step still passes it to all warps of the CTA that holds it,
+        # one block barrier's chain.
+        cluster = cuda_lin.gj_plan(name, m, args[0].dtype)[0] == "cluster"
         return {"bytes": b * (m * m + 2 * m) * size, "flops": b * 2 * m**3 / 3,
-                "steps": m, "warps": GJ_WARPS}
+                "steps": m, "chain": GJ_WARPS, "sms": CLUSTER_SMS if cluster else 1}
     b, m, n = args[1].shape
     num = args[9]
     # Per iteration K^-1 rhs, A' w and A x~ (2 n^2 + 4 m n) and ~10 (n + m) of
@@ -963,7 +1024,7 @@ def work(name: str, args) -> dict:
     # exchanges across the block.
     return {"bytes": b * (n * n + m * n + 3 * n + 7 * m) * size,
             "flops": b * num * (2 * n * n + 4 * m * n + 10 * (n + m)),
-            "steps": 3 * num, "warps": ADMM_WARPS}
+            "steps": 3 * num, "chain": ADMM_WARPS, "sms": 1}
 
 
 def library_call(name: str, args):
@@ -977,21 +1038,68 @@ def library_call(name: str, args):
     return None
 
 
-def barrier_chain_us(lib_path, warps: int, device) -> float:
+def kernel_route(name: str, args) -> str:
+    """The route (cuda_lin's plans) by which kernel `name` runs `args`."""
+    from g1_locomotion_tpu_torch.ops import cuda_lin
+
+    if name == "chol_inverse_base":
+        return "warp"
+    if name == "admm_iterate":
+        _, m, n = args[1].shape
+        return cuda_lin.admm_plan(n, m, args[1].dtype)[0]
+    return cuda_lin.gj_plan(name, args[0].shape[-1], args[0].dtype)[0]
+
+
+# A second route timed beside a kernel's own at the same shape: the
+# shared-memory kernel that ran the roll-moment cap's shapes before the
+# cluster and 14-row tiles, and B3's cluster tile where the one-SM tile
+# runs (the two do the same arithmetic; the cluster's cost a step apart from
+# its multiply-adds).
+ALSO_TIMED = {("gj_solve", "cluster"): "smem", ("admm_iterate", "tile14"): "smem",
+              ("gj_solve", "tile"): "cluster"}
+
+
+def forced_launch(name: str, args, route: str):
+    """A function launching B3 or B4 on `args` by `route` (cuda_lin's route
+    names), whichever route the plan picks; uncounted, for timing one route
+    beside another."""
+    from g1_locomotion_tpu_torch.ops import cuda_lin as cl
+
+    if name == "gj_solve":
+        K, b = args
+        x = torch.empty_like(b)
+        return lambda: cl._launch("lin_gj_solve", K.dtype, cl._ptr(K), cl._ptr(b), cl._ptr(x),
+                                  K.shape[0], K.shape[-1], cl.GJ_ROUTES[route], cl._stream(K))
+    tensors, (num, sigma, alpha) = args[:9], args[9:]
+    outs = [torch.empty_like(t) for t in args[6:9]]
+    B, m, n = args[1].shape
+    return lambda: cl._launch("lin_admm_iterate", args[1].dtype,
+                              *(cl._ptr(t) for t in (*tensors, *outs)), B, n, m, int(num),
+                              float(sigma), float(alpha), cl.ADMM_ROUTES[route],
+                              cl._stream(args[1]))
+
+
+def barrier_chain_us(lib_path, warps, device) -> float:
     """Microseconds per step of the barrier probe's chain (one warp's store
     to shared memory, one block barrier, all warps' load) in one block of
     `warps` warps: the slope between two chain lengths. With `warps` = 0 the
-    chain inside one warp (one lane's store, __syncwarp(), all lanes' load)."""
+    chain inside one warp (one lane's store, __syncwarp(), all lanes' load);
+    with "cluster" the chain across a two-CTA cluster of GJ_WARPS warps each
+    (one warp's store into both CTAs' shared memory, one cluster barrier,
+    all warps' load), the owner alternating between the CTAs."""
     lib = ctypes.CDLL(str(lib_path))
-    lib.probe_barrier_chain.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                                        ctypes.c_void_p]
+    for fn in (lib.probe_barrier_chain, lib.probe_cluster_chain):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.probe_warp_chain.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    lib.probe_barrier_chain.restype = lib.probe_warp_chain.restype = ctypes.c_int
-    out = torch.empty(max(warps, 1) * 32, dtype=torch.float32, device=device)
+    for fn in (lib.probe_barrier_chain, lib.probe_cluster_chain, lib.probe_warp_chain):
+        fn.restype = ctypes.c_int
+    out = torch.empty(CLUSTER_SMS * GJ_WARPS * 32, dtype=torch.float32, device=device)
     stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
     def launch(steps):
-        if warps:
+        if warps == "cluster":
+            err = lib.probe_cluster_chain(out.data_ptr(), steps, GJ_WARPS, stream)
+        elif warps:
             err = lib.probe_barrier_chain(out.data_ptr(), steps, warps, stream)
         else:
             err = lib.probe_warp_chain(out.data_ptr(), steps, stream)
@@ -1146,6 +1254,15 @@ def compare_kernels(calls, gen_device) -> dict:
                     cuda_lin.gj_inverse_ref(K)),
                    (f"B3 random SPD (3, {m_solve}, {m_solve})", cuda_lin.gj_solve(S, b),
                     cuda_lin.gj_solve_ref(S, b))]
+    # B3's cluster tile at its edges and the roll-moment cap's width, at B = 1
+    # and at more clusters than the card has pairs of SMs: the same check.
+    for m, bsz in B3_CLUSTER_CASES:
+        S = random_spd(bsz, m, 1e2, 300 + m, gen_device)
+        b = torch.randn((bsz, m), generator=torch.Generator().manual_seed(m)).to(gen_device)
+        if cuda_lin.gj_plan("gj_solve", m, S.dtype)[0] != "cluster":
+            raise AssertionError(f"B3 at m = {m} does not take the cluster tile")
+        checks.append((f"B3 cluster tile random SPD ({bsz}, {m}, {m})", cuda_lin.gj_solve(S, b),
+                       cuda_lin.gj_solve_ref(S, b)))
     torch.cuda.synchronize()
     for label, got, ref in checks:
         worst = float(((got - ref).abs() - 2e-4 * ref.abs()).max())
@@ -1245,35 +1362,67 @@ def compare_kernels(calls, gen_device) -> dict:
         if not res <= 4 * res_ref + 1e-5:
             raise AssertionError("B3 solve residual worse than its plain version's")
 
-    # B4 against the plain loop, both measured from the plain loop in float64:
-    # each of x, z, y within 2e-4 of its scale (tests/test_pallas_lin.py's
-    # tolerance between the two loops) or, where the iterations amplify
-    # rounding beyond that, within twice the spread that float32 rounding
-    # alone gives the plain loop (its largest deviation over four runs on
-    # inputs moved by one float32 rounding, 2^-24 relative, at random). The
-    # WBID's scaled duals are such a case: a 1e-7 relative change of K^-1
-    # moves y there by ~10% of its largest entry.
+    # B4 on the main path's inputs, then its 14-row tile on seeded QPs.
     gen = torch.Generator().manual_seed(6)
     for key, args, _ in calls["admm_iterate"]:
-        out = cuda_lin.admm_iterate(*args)
-        ref = cuda_lin.admm_iterate_ref(*(a.double() if isinstance(a, torch.Tensor) else a
-                                          for a in args))
-        band = [0.0, 0.0, 0.0]
-        for _ in range(4):
-            moved = [a * (1 + 2.0**-24 * torch.randn(a.shape, generator=gen).to(a))
-                     if isinstance(a, torch.Tensor) else a for a in args]
-            for i, (o, r) in enumerate(zip(cuda_lin.admm_iterate_ref(*moved), ref)):
-                band[i] = max(band[i], float((o.double() - r).abs().max()))
-        torch.cuda.synchronize()
-        note("admm_iterate", max(float((o.double() - r).abs().max()) for o, r in zip(out, ref)))
-        for name, o, r, spread in zip("xzy", out, ref, band):
-            err, scale = float((o.double() - r).abs().max()), float(r.abs().max())
-            print(f"B4 A {key[1]}, num {args[9]}, {name}: |kernel - plain in f64| {err:.3e} "
-                  f"(scale {scale:.3e}); float32 rounding spread of the plain loop {spread:.3e} "
-                  f"(<= max(2e-4 scale, 2 spread))")
-            if not err <= max(2e-4 * scale, 2 * spread):
-                raise AssertionError("B4 disagrees with its plain loop")
+        note("admm_iterate", check_b4(f"B4 A {key[1]}", args, gen))
+    for i, (n, m) in enumerate(B4_WIDE_CASES):
+        if cuda_lin.admm_plan(n, m, torch.float32)[0] != "tile14":
+            raise AssertionError(f"B4 at (n, m) = ({n}, {m}) does not take the 14-row tile")
+        for bsz in (1, 150):
+            args = admm_case(bsz, n, m, 400 + i, gen_device)
+            check_b4(f"B4 14-row tile seeded A {tuple(args[1].shape)}", args, gen)
     return errs
+
+
+def check_b4(label: str, args, gen) -> float:
+    """B4 against the plain loop on `args`, both measured from the plain loop
+    in float64: each of x, z, y within 2e-4 of its scale
+    (tests/test_pallas_lin.py's tolerance between the two loops) or, where the
+    iterations amplify rounding beyond that, within twice the spread that
+    float32 rounding alone gives the plain loop (its largest deviation over
+    four runs on inputs moved by one float32 rounding, 2^-24 relative, at
+    random). The WBID's scaled duals are such a case: a 1e-7 relative change
+    of K^-1 moves y there by ~10% of its largest entry. Returns the largest
+    |kernel - plain in f64|."""
+    from g1_locomotion_tpu_torch.ops import cuda_lin
+
+    out = cuda_lin.admm_iterate(*args)
+    ref = cuda_lin.admm_iterate_ref(*(a.double() if isinstance(a, torch.Tensor) else a
+                                      for a in args))
+    band = [0.0, 0.0, 0.0]
+    for _ in range(4):
+        moved = [a * (1 + 2.0**-24 * torch.randn(a.shape, generator=gen).to(a))
+                 if isinstance(a, torch.Tensor) else a for a in args]
+        for i, (o, r) in enumerate(zip(cuda_lin.admm_iterate_ref(*moved), ref)):
+            band[i] = max(band[i], float((o.double() - r).abs().max()))
+    torch.cuda.synchronize()
+    for name, o, r, spread in zip("xzy", out, ref, band):
+        err, scale = float((o.double() - r).abs().max()), float(r.abs().max())
+        print(f"{label}, num {args[9]}, {name}: |kernel - plain in f64| {err:.3e} "
+              f"(scale {scale:.3e}); float32 rounding spread of the plain loop {spread:.3e} "
+              f"(<= max(2e-4 scale, 2 spread))")
+        if not err <= max(2e-4 * scale, 2 * spread):
+            raise AssertionError(f"{label}: B4 disagrees with its plain loop")
+    return max(float((o.double() - r).abs().max()) for o, r in zip(out, ref))
+
+
+def admm_case(b: int, n: int, m: int, seed: int, device, num: int = 17):
+    """B4's arguments for a seeded float32 QP batch (tests/test_pallas_lin.py's
+    construction): K = P + sigma I + A' diag(rho) A with P SPD (cond 1e2),
+    K^-1 by float64 inversion, box bounds around 0, x small, z = y = 0."""
+    rng = np.random.default_rng(seed)
+    sigma, alpha = 1e-6, 1.6
+    Q, _ = np.linalg.qr(rng.standard_normal((b, n, n)))
+    P = np.einsum("bik,bk,bjk->bij", Q, np.exp(rng.uniform(0.0, np.log(1e2), (b, n))), Q)
+    A = rng.standard_normal((b, m, n))
+    rho = np.abs(rng.standard_normal((b, m))) + 0.5
+    K = P + sigma * np.eye(n) + np.einsum("bmi,bm,bmj->bij", A, rho, A)
+    vecs = (np.linalg.inv(K), A, rng.standard_normal((b, n)),
+            -np.abs(rng.standard_normal((b, m))) - 0.1, np.abs(rng.standard_normal((b, m))) + 0.1,
+            rho, rng.standard_normal((b, n)) * 0.1, np.zeros((b, m)), np.zeros((b, m)))
+    return [torch.tensor(v, dtype=torch.float32, device=device) for v in vecs] + [num, sigma,
+                                                                                   alpha]
 
 
 @contextlib.contextmanager
@@ -1331,7 +1480,7 @@ def pod_sweep(loop, params, tau_max, mg, dtype) -> dict:
         _, _, whole = sweep.run_sweep(loop, params, SWEEP_PERIODS, states0=state0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = [cuda_lin.launch_counts()]
+    launches = [read_counts()]
     print(f"phase 15 pod sweep: B={B}, {SWEEP_PERIODS} periods unchunked in {wall:.3f} s (host "
           f"clock, with the invariants' logs); periods {['%.3f' % m for m in period_ms]} ms "
           f"(CUDA events); launches {launches[0]} "
@@ -1359,7 +1508,7 @@ def pod_sweep(loop, params, tau_max, mg, dtype) -> dict:
                     torch.equal(a, b) for a, b in zip(tree.leaves(saved), tree.leaves(
                         (states, acc, com_ref, min_z)))):
                 raise AssertionError("phase 15: the checkpoint did not round-trip")
-    launches.append(cuda_lin.launch_counts())
+    launches.append(read_counts())
     if launches[1] != SWEEP_LAUNCHES:
         raise AssertionError(f"the chunked pod sweep launched {launches[1]}, "
                              f"expected {SWEEP_LAUNCHES}")
@@ -1402,7 +1551,7 @@ def telemetry_period(name: str, loop, batch: int, params, dtype) -> dict:
     _, log = loop.period(state, params)
     end.record()
     torch.cuda.synchronize()
-    launches = cuda_lin.launch_counts()
+    launches = read_counts()
     period = start.elapsed_time(end)
     mpc, wbid = log.mpc_ms.double().cpu(), log.wbid_ms.double().cpu()
     wbid_sum = float(wbid.sum(dim=1).max())
@@ -1463,7 +1612,7 @@ def bridge_phase(model, device, gpu: str) -> dict:
     first = bridge_replay(ctrl, trace, range(PERIOD_TICKS))
     snapshot = ctrl.state, ctrl.tick
     second = bridge_replay(ctrl, trace, range(PERIOD_TICKS, BRIDGE_TICKS))
-    launches = cuda_lin.launch_counts()
+    launches = read_counts()
     got = [np.concatenate([a, b]) for a, b in zip(first[:3], second[:3])]
     tick_ms = first[3] + second[3]
     print(f"phase 17 MuJoCo bridge replay: {BRIDGE_TICKS} ticks of {TRACE} at float64 (B = 1, "
@@ -1514,7 +1663,7 @@ def bridge_phase(model, device, gpu: str) -> dict:
     t0 = time.perf_counter()
     checks = torch_mujoco_bar.standing_bar(loop, BRIDGE_LOOP_TICKS)
     wall = time.perf_counter() - t0
-    out["closed loop"] = cuda_lin.launch_counts()
+    out["closed loop"] = read_counts()
     print(f"phase 17 closed loop in MuJoCo: {BRIDGE_LOOP_TICKS} ticks in {wall:.3f} s; "
           f"{ {k: v[0] for k, v in checks.items()} }; launches {out['closed loop']}")
     if out["closed loop"] != bridge_launches(BRIDGE_LOOP_TICKS):
@@ -1643,17 +1792,17 @@ def main(argv) -> None:
     torch.cuda.synchronize()
     errs = compare_kernels(calls, device)
     m_cap = 200 + srv_cfg.horizon
-    routes = {"gj_solve": cuda_lin.gj_plan("gj_solve", m_cap, dtype),
-              "admm_iterate": cuda_lin.admm_plan(120, m_cap, dtype)}
+    routes = {"gj_solve": cuda_lin.gj_plan("gj_solve", m_cap, dtype)[0],
+              "admm_iterate": cuda_lin.admm_plan(120, m_cap, dtype)[0]}
     # B3's first input is S (1, m, m), B4's second A (1, m, n).
     recorded = {"gj_solve": any(key[0][-1] == m_cap for key, _, _ in calls["gj_solve"]),
                 "admm_iterate": any(key[1][-2] == m_cap for key, _, _ in calls["admm_iterate"])}
     print(f"phase 1 serving solve with roll_moment_max = {ROLL_MOMENT_MAX}: m = {m_cap}; B3 "
-          f"runs gj_smem_kernel ({routes['gj_solve'][1]} B of shared memory), B4 at n = 120 "
-          f"admm_smem_kernel ({routes['admm_iterate'][1]} B); both held above: {recorded}")
-    if any(tile for tile, _ in routes.values()) or not all(recorded.values()):
-        raise AssertionError("phase 1: the capped serving solve's B3 / B4 are not the "
-                             "shared-memory kernels, or were not recorded")
+          f"takes route {routes['gj_solve']} (gj_cluster_kernel), B4 at n = 120 route "
+          f"{routes['admm_iterate']} (admm_tile_kernel<14>); both held above: {recorded}")
+    if routes != CAPPED_ROUTES or not all(recorded.values()):
+        raise AssertionError(f"phase 1: the capped serving solve's B3 / B4 take {routes}, "
+                             f"expected {CAPPED_ROUTES}, or were not recorded")
     print("phase 1 kernels vs plain versions: ok")
 
     # Phases 2 and 3: the main path, each path counted on its own.
@@ -1661,7 +1810,7 @@ def main(argv) -> None:
     t0 = time.perf_counter()
     sol = run(thr, inp)
     torch.cuda.synchronize()
-    thr_launches = cuda_lin.launch_counts()
+    thr_launches = read_counts()
     print(f"phase 2 throughput: B={B_THROUGHPUT} solved in {time.perf_counter() - t0:.3f} s "
           f"(first call, host clock); launches {thr_launches}")
     if thr_launches != THROUGHPUT_LAUNCHES:
@@ -1690,9 +1839,35 @@ def main(argv) -> None:
         x = x + 1e-9 * torch.nn.functional.pad(s1.u0, (0, 1))  # data dependence
     torch.cuda.synchronize()
     check_invariants(s1, one["contact"], f"phase 3 serving ({SERVING_CHAIN}-solve chain)")
-    srv_launches = cuda_lin.launch_counts()
+    srv_launches = read_counts()
     if srv_launches != SERVING_LAUNCHES:
         raise AssertionError(f"serving path launched {srv_launches}, expected {SERVING_LAUNCHES}")
+
+    # Phase 3, capped: the same chain with the roll-moment cap (m = 210), B3
+    # on its cluster tile and B4 on its 14-row tile, and by no other route.
+    xc = one["x0"]
+    cuda_lin.reset_launch_counts()
+    for _ in range(SERVING_CHAIN):
+        sc = srv_cap(xc, one["x_ref"], one["contact"], one["c_hor"], one["p_hor"])
+        xc = xc + 1e-9 * torch.nn.functional.pad(sc.u0, (0, 1))
+    torch.cuda.synchronize()
+    cap_routes = cuda_lin.route_counts()
+    cap_launches = read_counts(routes=None)
+    print(f"phase 3 capped serving ({SERVING_CHAIN}-solve chain, roll_moment_max = "
+          f"{ROLL_MOMENT_MAX}): launches {cap_launches}, by route {cap_routes}")
+    if cap_launches != SERVING_LAUNCHES or any(
+            cap_routes[name] != {route: cap_launches[name]} for name, route in CAPPED_ROUTES.items()):
+        raise AssertionError(f"capped serving path launched {cap_launches} by {cap_routes}, "
+                             f"expected {SERVING_LAUNCHES} by {CAPPED_ROUTES}")
+    check_invariants(sc, one["contact"], f"phase 3 capped serving ({SERVING_CHAIN}-solve chain)")
+    sc = srv_cap(xc, one["x_ref"], one["contact"], one["c_hor"], one["p_hor"])
+    with plain_kernels():
+        sc_plain = srv_cap(xc, one["x_ref"], one["contact"], one["c_hor"], one["p_hor"])
+    du = float((sc.u0 - sc_plain.u0).abs().max())
+    print(f"phase 3 capped serving, one solve: kernel path vs plain path |du0| {du:.3e} N "
+          f"(<= {DU0_MAX_N})")
+    if not du <= DU0_MAX_N:
+        raise AssertionError(f"capped serving solve: |du0| {du} N against the plain path")
 
     # Phase 5: the WBID serving tick, one control period of data-dependent
     # B = 1 ticks (kernels B2, B3, B4).
@@ -1700,7 +1875,7 @@ def main(argv) -> None:
     t0 = time.perf_counter()
     worst, (wq1, wv1, wrefs1) = serving_chain(wsrv, wsrv.model, wsrv.idx, device, dtype)
     torch.cuda.synchronize()
-    wsrv_launches = cuda_lin.launch_counts()
+    wsrv_launches = read_counts()
     print(f"phase 5 WBID serving: {WBID_TICKS} ticks ({WBID_STANCE_TICKS} double support, then "
           f"left swing) in {time.perf_counter() - t0:.3f} s (host clock, with the checks); "
           f"launches {wsrv_launches}")
@@ -1718,7 +1893,7 @@ def main(argv) -> None:
     t0 = time.perf_counter()
     wsol = wbat(wq, wv, wrefs)
     torch.cuda.synchronize()
-    wbat_launches = cuda_lin.launch_counts()
+    wbat_launches = read_counts()
     print(f"phase 6 WBID batched: B={B_WBID} in {time.perf_counter() - t0:.3f} s (host clock); "
           f"launches {wbat_launches}")
     if wbat_launches != WBID_BATCHED_LAUNCHES:
@@ -1749,7 +1924,7 @@ def main(argv) -> None:
         torch.cuda.synchronize()
         period_ms.append((time.perf_counter() - t1) * 1e3)
         logs.append(log_numpy(log))
-    psrv_launches = cuda_lin.launch_counts()
+    psrv_launches = read_counts()
     print(f"phase 7 serving period: {SERVING_PERIODS} periods ({SERVING_PERIODS * PERIOD_TICKS} "
           f"ticks) in {time.perf_counter() - t0:.3f} s (host clock); launches {psrv_launches}")
     if psrv_launches != SERVING_PERIOD_LAUNCHES:
@@ -1773,7 +1948,7 @@ def main(argv) -> None:
     t0 = time.perf_counter()
     bfin, blog = ebat.period(bstate, eparams)
     torch.cuda.synchronize()
-    pbat_launches = cuda_lin.launch_counts()
+    pbat_launches = read_counts()
     print(f"phase 8 batched cascade: B={B_CASCADE} period in {time.perf_counter() - t0:.3f} s "
           f"(host clock, first call); launches {pbat_launches}")
     if pbat_launches != CASCADE_LAUNCHES:
@@ -1796,7 +1971,7 @@ def main(argv) -> None:
     t0 = time.perf_counter()
     _, glog = walk.rollout(wstate, wparams, GOLDEN_PERIODS)
     torch.cuda.synchronize()
-    walk_launches = cuda_lin.launch_counts()
+    walk_launches = read_counts()
     walk_s = time.perf_counter() - t0
     if any(walk_launches.values()):
         raise AssertionError(f"the walk launched {walk_launches}, expected no kernel")
@@ -1828,7 +2003,7 @@ def main(argv) -> None:
     torch.cuda.synchronize()
     srbd_wall = time.perf_counter() - t0
     srbd_ms = start.elapsed_time(end)
-    srbd_launches = cuda_lin.launch_counts()
+    srbd_launches = read_counts()
     print(f"phase 10 batched SRBD loop: B={B_SRBD}, {SRBD_PERIODS} periods in {srbd_ms:.1f} ms "
           f"(CUDA events; host clock {srbd_wall:.3f} s): {SRBD_PERIODS / (srbd_ms / 1e3):.1f} "
           f"periods/s, {B_SRBD * SRBD_PERIODS / (srbd_ms / 1e3):.1f} instance-periods/s; "
@@ -1866,7 +2041,7 @@ def main(argv) -> None:
         torch.cuda.synchronize()
         srbd_srv_ms.append((time.perf_counter() - t1) * 1e3)
         srv_logs.append(log1)
-    ssrv_launches = cuda_lin.launch_counts()
+    ssrv_launches = read_counts()
     print(f"phase 11 SRBD-loop serving chain: {SRBD_SERVING_PERIODS} B = 1 periods, p50 "
           f"{median(srbd_srv_ms):.3f} ms, max {max(srbd_srv_ms):.3f} ms per period (host "
           f"clock, synchronized); launches {ssrv_launches}")
@@ -1892,7 +2067,7 @@ def main(argv) -> None:
     _, wlog = sl.SRBDLoop(wcfg, SRBD_COM_HEIGHT).rollout(state64, wparams, SRBD_PERIODS)
     torch.cuda.synchronize()
     swalk_s = time.perf_counter() - t0
-    swalk_launches = cuda_lin.launch_counts()
+    swalk_launches = read_counts()
     if any(swalk_launches.values()):
         raise AssertionError(f"the SRBD walk launched {swalk_launches}, expected no kernel")
     bar = check_srbd_walk(wlog)
@@ -1911,7 +2086,7 @@ def main(argv) -> None:
         end.record()
         torch.cuda.synchronize()
         var_ms[variant] = start.elapsed_time(end)
-        var_launches[variant] = cuda_lin.launch_counts()
+        var_launches[variant] = read_counts()
         print(f"phase 13 variant cascade {variant} (nv = {vloop.model.nv}): B={B_VARIANT} period "
               f"in {var_ms[variant]:.3f} ms (CUDA events; the model's first period); launches "
               f"{var_launches[variant]}")
@@ -1935,7 +2110,7 @@ def main(argv) -> None:
     cuda_lin.reset_launch_counts()
     u_api, x_api = api.update(*api_args, x_current=api.x0, one_rollout=True)
     u_api2, _ = api.update(*api_args, x_current=api.x0)
-    api_launches = cuda_lin.launch_counts()
+    api_launches = read_counts()
     with plain_kernels():
         api_ref, _ = mpc_class_case(device)
         u_ref = api_ref.update(*api_args, x_current=api_ref.x0)[0]
@@ -1965,7 +2140,7 @@ def main(argv) -> None:
 
     cuda_lin.reset_launch_counts()
     gait = demos.demo_gait_sweep(batch=B_THROUGHPUT, device=device)
-    gait_launches = cuda_lin.launch_counts()
+    gait_launches = read_counts()
     print(f"gait sweep demo: {gait}; launches {gait_launches}")
     if gait_launches != GAIT_SWEEP_LAUNCHES:
         raise AssertionError(f"the gait sweep demo launched {gait_launches}, "
@@ -1987,6 +2162,7 @@ def main(argv) -> None:
     bridge_paths = bridge_phase(robot64, device, gpu)
 
     paths = {"MPC throughput": thr_launches, "MPC serving": srv_launches,
+             "MPC serving, roll-moment cap": cap_launches,
              "WBID serving": wsrv_launches, "WBID batched": wbat_launches,
              "serving period": psrv_launches, "batched cascade": pbat_launches,
              "SRBD loop batched": srbd_launches, "SRBD loop serving": ssrv_launches,
@@ -2119,12 +2295,16 @@ def main(argv) -> None:
     # B1 <double, n> at the pod-sweep demo's (4096, n, n): phase 1's batches.
     b1_f64_batches = [random_spd(B_THROUGHPUT, n, 1e3, 200 + n, device, torch.float64)
                       for n in B1_F64_SIZES]
-    chain_us = {w: barrier_chain_us(probe_path, w, device) for w in sorted({GJ_WARPS, ADMM_WARPS, 0}, reverse=True)}
+    chain_us = {w: barrier_chain_us(probe_path, w, device)
+                for w in (*sorted({GJ_WARPS, ADMM_WARPS}, reverse=True), 0, "cluster")}
     for w, us in chain_us.items():
-        print(f"[{gpu}] barrier chain, " + (f"one block of {w} warps" if w else "one warp")
-              + f": {us:.4f} us per step (store to shared memory, "
-              + ("block barrier" if w else "__syncwarp()") + ", load)")
-    rows = {}  # {name: the kernels-line numbers at the first (widest) shape}
+        what = {0: "one warp: store to shared memory, __syncwarp(), load",
+                "cluster": f"a cluster of {CLUSTER_SMS} CTAs of {GJ_WARPS} warps: store to "
+                           f"both CTAs' shared memory, cluster barrier, load"}.get(
+            w, f"one block of {w} warps: store to shared memory, block barrier, load")
+        print(f"[{gpu}] barrier chain, {what}: {us:.4f} us per step")
+    rows = {}    # {name: the kernels-line numbers at the first (widest) shape}
+    shapes = {}  # {name: [the numbers at each timed shape, with its route]}
     for name in REPLACES:
         kernel, plain = getattr(cuda_lin, name), cuda_lin.PLAIN[name]
         if name == "chol_inverse_base":
@@ -2147,34 +2327,54 @@ def main(argv) -> None:
                 cases.append((label, args, lambda args=args: kernel(*args)))
         for label, args, launch in cases:
             lib = library_call(name, args)
-            k_all, l_all = [], []
+            route = kernel_route(name, args)
+            other = ALSO_TIMED.get((name, route))
+            also = forced_launch(name, args, other) if other else None
+            k_all, l_all, a_all = [], [], []
             for _ in range(ROUNDS):
                 k_all.append(cuda_ms(launch, reps=REPS, queue_ahead=True))
                 if lib:
                     l_all.append(cuda_ms(lib[1], reps=REPS, queue_ahead=True))
+                if also:
+                    a_all.append(cuda_ms(also, reps=REPS, queue_ahead=True))
             k_ms, l_ms = median(k_all), (median(l_all) if lib else None)
             p_ms = cuda_ms(lambda: plain(*args), reps=5)
             need = work(name, args)
             peak = PEAK_FP64_FLOPS if args[0].dtype == torch.float64 else PEAK_FP32_FLOPS
             bound_ms, bound_by = max((need["bytes"] / PEAK_BYTES_PER_S * 1e3, "bytes"),
                                      (need["flops"] / peak * 1e3, "operations"))
-            rows.setdefault(name, {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-                                   "bound_by": bound_by, "library_ms": l_ms})
-            line = (f"[{gpu}] {name} at {label}: kernel {k_ms:.4f} ms "
+            row = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": l_ms}
+            rows.setdefault(name, row)
+            line = (f"[{gpu}] {name} at {label} (route {route}): kernel {k_ms:.4f} ms "
                     f"(rounds {min(k_all):.4f}-{max(k_all):.4f}), plain {p_ms:.4f} ms, "
                     f"card bound {bound_ms:.6f} ms by {bound_by} "
                     f"({need['bytes']} B, {need['flops']:.0f} flop)")
             if lib:
                 line += (f", {lib[0]} {l_ms:.4f} ms (rounds {min(l_all):.4f}-{max(l_all):.4f}), "
                          f"kernel / library {k_ms / l_ms:.3f}")
+            if also:
+                row[f"{other}_ms"] = median(a_all)
+                what = ("the shared-memory kernel that ran this shape before" if other == "smem"
+                        else "B3's cluster tile at this shape")
+                line += (f"; by route {other}, {what}: {row[f'{other}_ms']:.4f} ms (rounds "
+                         f"{min(a_all):.4f}-{max(a_all):.4f}), "
+                         f"{row[f'{other}_ms'] / k_ms:.2f}x the kernel's time")
             if "steps" in need:
-                ops_ms = need["flops"] / (PEAK_FP32_FLOPS / SM_COUNT) * 1e3
-                chain_ms = need["steps"] * chain_us[need["warps"]] / 1e3
-                one_sm = max(ops_ms, chain_ms)
-                line += (f"; one-SM bound {one_sm:.4f} ms (operations at 1/{SM_COUNT} of the "
-                         f"fp32 rate {ops_ms:.4f} ms, chain of {need['steps']} steps "
-                         f"{chain_ms:.4f} ms), kernel / one-SM bound {k_ms / one_sm:.2f}, "
+                sms = need["sms"]
+                ops_ms = need["flops"] / (PEAK_FP32_FLOPS * sms / SM_COUNT) * 1e3
+                chain_ms = need["steps"] * chain_us[need["chain"]] / 1e3
+                row["sm_bound_ms"] = max(ops_ms, chain_ms)
+                word = "one-SM" if sms == 1 else f"{sms}-SM"
+                line += (f"; {word} bound {row['sm_bound_ms']:.4f} ms (operations at "
+                         f"{sms}/{SM_COUNT} of the fp32 rate {ops_ms:.4f} ms, chain of "
+                         f"{need['steps']} steps {chain_ms:.4f} ms), kernel / {word} bound "
+                         f"{k_ms / row['sm_bound_ms']:.2f}, "
                          f"{k_ms / need['steps'] * 1e3:.3f} us per step")
+                if sms > 1:
+                    line += (f"; a cluster barrier every step would add the probe's cluster "
+                             f"chain, {need['steps']} x {chain_us['cluster']:.4f} us = "
+                             f"{need['steps'] * chain_us['cluster'] / 1e3:.4f} ms")
             if name == "chol_inverse_base":
                 b, n = args[0].shape[0], args[0].shape[-1]
                 line += (f"; a warp's chain of {n} column steps at {chain_us[0]:.4f} us: "
@@ -2182,9 +2382,11 @@ def main(argv) -> None:
                 if b == 1:
                     # One matrix is one warp on one SM: the larger of its
                     # operations at 1/SM_COUNT of the rate and the chain.
-                    one_sm = max(need["flops"] / (peak / SM_COUNT) * 1e3, n * chain_us[0] / 1e3)
-                    line += (f"; one-SM bound {one_sm:.6f} ms, kernel / one-SM bound "
-                             f"{k_ms / one_sm:.2f}")
+                    row["sm_bound_ms"] = max(need["flops"] / (peak / SM_COUNT) * 1e3,
+                                             n * chain_us[0] / 1e3)
+                    line += (f"; one-SM bound {row['sm_bound_ms']:.6f} ms, kernel / one-SM "
+                             f"bound {k_ms / row['sm_bound_ms']:.2f}")
+            shapes.setdefault(name, []).append({"shape": label, "kernel_route": route, **row})
             print(line)
 
     # B4's fixed part (the launch, reading K^-1 and A, writing x, z, y) and its
@@ -2223,12 +2425,41 @@ def main(argv) -> None:
     print(f"[{gpu}] SPD inverse (4096, 120, 120): recursion + B1 {rec_ms:.3f} ms, "
           f"torch.linalg.cholesky_ex + cholesky_inverse {lib_ms:.3f} ms")
 
+    # The capped serving solve (phase 3's chain): host clock, and its device
+    # time by CUDA events with the solve queued behind a busy card (no
+    # operation of the serving solve waits for the card), beside the
+    # uncapped one's.
+    for label, solver in (("serving", srv), ("capped serving", srv_cap)):
+        args = (xc if solver is srv_cap else x, one["x_ref"], one["contact"], one["c_hor"],
+                one["p_hor"])
+        for _ in range(3):
+            solver(*args)
+        lat = []
+        for _ in range(CAPPED_SAMPLES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solver(*args)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        dev = [cuda_ms(lambda: solver(*args), reps=1, warmup=0, queue_ahead=True,
+                       busy_cycles=SOLVE_BUSY_CYCLES) for _ in range(ROUNDS)]
+        print(f"[{gpu}] {label} B=1 solve (roll_moment_max "
+              f"{solver.cfg.roll_moment_max}): host clock p50 {median(lat):.3f} ms over "
+              f"{CAPPED_SAMPLES} solves; device time {median(dev):.4f} ms (CUDA events, "
+              f"queued behind a busy card; rounds {min(dev):.4f}-{max(dev):.4f})")
+
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": errs[name], **rows[name],
+         "launches_by_route": ROUTE_LAUNCHES.get(name, {}), "shapes": shapes[name],
          "paths": {path: p[name] for path, p in paths.items() if p[name]}}
         for name in REPLACES
     ]
+    for kernel in kernels:
+        if sum(kernel["launches_by_route"].values()) != kernel["launches"]:
+            raise AssertionError(f"{kernel['name']}: launches by route "
+                                 f"{kernel['launches_by_route']} do not add up to "
+                                 f"{kernel['launches']}")
     print(f"chip_smoke.py: {time.perf_counter() - T_START:.1f} s in all, the build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

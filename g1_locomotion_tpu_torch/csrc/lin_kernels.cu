@@ -227,9 +227,34 @@ cudaError_t launch_chol_inv_base(const T* K, T* W, int batch, int n, long long k
 // every warp: keep them few. Rows and columns beyond m are zero and are
 // never pivots, so padding cannot make a zero pivot.
 //
+// Past the tile (B3 at float32, 208 < m <= 240: the serving MPC solve with
+// MPCConfig.roll_moment_max has m = 210) one SM's registers cannot hold the
+// system: 14 rows a thread would need 98 values and 16 factors under the 128
+// registers a thread of a 512-thread block may have. gj_cluster_kernel
+// splits the rows over the two SMs of a thread-block cluster (Hopper), each
+// an 8 x 8 tile a thread, so that a step costs an SM at most 64
+// multiply-adds a thread. What bounds it then is passing each pivot row to
+// the other SM. A cluster barrier a step would do that at a round trip's
+// cost: on an H100 the barrier probe's cluster chain (a store into the peer,
+// a cluster barrier, a load) takes 0.71 us a step, more than the tile's
+// whole step (PERF.md). But the rows of a row block of W pivots all come
+// from the CTA that holds the block, and its peer only reads them: so the
+// owner warp writes each normalised pivot row into a ring of W slots in both
+// CTAs (in the peer with st.async, which completes on the slot's mbarrier
+// there), the reader waits on that mbarrier, and each CTA keeps the tile's
+// one block barrier a step for its own warps. The reader trails by one
+// transfer, and the CTAs meet only where the owner changes, every W pivots.
+// The ring needs no "empty" signal: the peer writes a slot again only for
+// the block after next, which it cannot reach before this CTA has read every
+// row of this block (each pivot row depends on all earlier ones). A step
+// then costs about what the tile's does where its multiply-adds are few
+// (PERF.md): the chain inside one SM (factors and row loaded, the next
+// pivot's column and row updated, its reciprocal, published, a block
+// barrier).
+//
 // gj_smem_kernel does the same arithmetic with the array in dynamic shared
 // memory, one warp per row and three barriers per step, for float64 and for
-// float32 systems larger than the tile. The main path does not reach it.
+// B2's float32 systems larger than its tile; no path of the port reaches it.
 // ---------------------------------------------------------------------------
 
 constexpr int kGjInverseW = 16;  // B2 tile: 16 warps, 8 x 4 a thread: 128 x 128
@@ -238,6 +263,11 @@ constexpr int kGjInverseC = 4;
 constexpr int kGjSolveW = 16;  // B3 tile: 16 warps, 13 x 7 a thread: 208 x 224 (with b)
 constexpr int kGjSolveR = 13;
 constexpr int kGjSolveC = 7;
+// B3 cluster tile: 2 CTAs of 16 warps, 8 x 8 a thread: 256 x 256 (with b).
+constexpr int kGjClusterCtas = 2;
+constexpr int kGjClusterW = 16;
+constexpr int kGjClusterR = 8;
+constexpr int kGjClusterC = 8;
 constexpr int kGjSmemWarps = 16;  // gj_smem_kernel
 // Buffers for the published pivots, taken in turns: step j reads pivot j's
 // while it publishes pivot j + 1's, with one barrier between steps.
@@ -269,6 +299,32 @@ __device__ __forceinline__ void sts128(unsigned addr, float x, float y, float z,
   asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(addr), "f"(x), "f"(y), "f"(z),
                "f"(w)
                : "memory");
+}
+
+// Thread-block clusters (sm_90): this CTA's rank and its cluster's index in
+// the grid, the address in distributed shared memory of the same shared
+// variable in CTA `rank`, and the cluster barrier's two halves (arrive with
+// release semantics, wait with acquire).
+__device__ __forceinline__ unsigned cluster_ctarank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_id() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned map_to_rank(unsigned addr, unsigned rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 }
 
 // The register tile of one thread, W warps a block: a[i][k] is the element in
@@ -452,6 +508,248 @@ __global__ void __launch_bounds__(kWarp * W, 1)
   }
 }
 
+// mbarrier (sm_90): init, the init's release to the cluster, an arrival
+// that also expects `bytes` of asynchronous stores, a bounded wait for a
+// phase's completion, and a 4-byte store into a peer CTA's shared memory
+// that completes that many bytes on the peer's mbarrier.
+__device__ __forceinline__ void mbar_init(unsigned addr, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(addr), "r"(count) : "memory");
+}
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(unsigned addr, unsigned bytes) {
+  asm volatile(
+      "{\n\t.reg .b64 state;\n\t"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n\t}" ::"r"(addr),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(unsigned addr, unsigned parity) {
+  unsigned ok;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(ok)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+// Clocks before a wait gives up (about 2 s): a row that never arrives traps
+// (the launch fails) instead of hanging the card.
+constexpr long long kMbarClocks = 4000000000LL;
+__device__ __forceinline__ void mbar_wait(unsigned addr, unsigned parity) {
+  if (mbar_try_wait(addr, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try_wait(addr, parity)) {
+    if (clock64() - start > kMbarClocks) __trap();
+  }
+}
+__device__ __forceinline__ void st_async(unsigned addr, float v, unsigned mbar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];" ::"r"(
+                   addr),
+               "r"(__float_as_uint(v)), "r"(mbar)
+               : "memory");
+}
+
+// B3's tile split over a cluster of kGjClusterCtas CTAs of W warps: global
+// row block g (rows W g .. W g + W - 1) lies in CTA g % 2, as its row block
+// g / 2, so thread (ty, tx) of CTA `rank` holds in a[i][k] the element in row
+// W (2 i + rank) + ty, column tx + 32 k. Every step is the tile's solve step,
+// in the same order of operations per element (the results are bitwise the
+// tile's); what differs is where a pivot row of the peer's block comes from:
+// slot jj of a ring of W rows, one a pivot of the block, written by the
+// peer's owner warp and awaited on the slot's mbarrier.
+template <int W, int R, int C>
+struct GjClusterTile {
+  static constexpr int RP = round_up4(R);
+  static constexpr int kColBytes = W * RP * 4;     // one buffer of published factors
+  static constexpr int kRowBytes = kWarp * C * 4;  // one ring slot: a normalised pivot row
+  float a[R][C];
+  // Shared addresses: this warp's factors; this lane's entries of ring slot
+  // 0, here and in the peer CTA; the mbarrier of slot 0, here and there
+  // (8 bytes a slot).
+  unsigned col, ring, peer_ring, full, peer_full;
+  int tx, ty, rank;
+  int kend;  // chunks that hold a column <= m; those beyond are zero padding
+
+  // Pivot j = W * g + jj lies in column chunk chunk(g), lane lane(g, jj), in
+  // the CTA for which holds(g). Constants where g is one (an unrolled loop),
+  // but for holds.
+  static __device__ __forceinline__ int chunk(int g) { return (g * W) / kWarp; }
+  static __device__ __forceinline__ int lane(int g, int jj) { return (g * W) % kWarp + jj; }
+  __device__ __forceinline__ bool holds(int g) const { return rank == g % kGjClusterCtas; }
+
+  // Publish the factors of pivot (g, jj): its column in this CTA's rows.
+  __device__ __forceinline__ void publish_col(int g, int jj, int buf) {
+    const int kb = chunk(g);
+    if (tx == lane(g, jj)) {
+      const unsigned dst = col + buf * kColBytes;
+#pragma unroll
+      for (int i = 0; i + 4 <= R; i += 4) {
+        sts128(dst + 4 * i, a[i][kb], a[i + 1][kb], a[i + 2][kb], a[i + 3][kb]);
+      }
+#pragma unroll
+      for (int i = R / 4 * 4; i < R; ++i) sts32(dst + 4 * i, a[i][kb]);
+    }
+  }
+  // Normalise pivot (g, jj)'s row in its owner warp and write it into ring
+  // slot jj of both CTAs, from the pivot's chunk on (the chunks left of it
+  // are dead): here with plain stores, there with stores that complete on the
+  // peer's mbarrier of the slot.
+  __device__ __forceinline__ void publish_row(int g, int jj, float piv) {
+    const int i = g / kGjClusterCtas;
+    const float inv = 1.0f / piv;
+#pragma unroll
+    for (int k = chunk(g); k < C; ++k) {
+      if (k >= kend) break;
+      a[i][k] = a[i][k] * inv;
+      sts32(ring + jj * kRowBytes + 4 * kWarp * k, a[i][k]);
+      st_async(peer_ring + jj * kRowBytes + 4 * kWarp * k, a[i][k], peer_full + 8 * jj);
+    }
+  }
+  __device__ __forceinline__ float pivot_of(int g, int jj) {
+    return __shfl_sync(kFullMask, a[g / kGjClusterCtas][chunk(g)], lane(g, jj));
+  }
+  // Step of pivot (g, jj), whose row is in ring slot jj; (gn, jjn) is the
+  // next pivot. As the tile's step: the next pivot's column (every warp) and
+  // row (its owner warp) first, published into the other factor buffer and
+  // the next slot, then the rest of the update, and one block barrier.
+  __device__ __forceinline__ void step(int g, int jj, int gn, int jjn, bool next) {
+    const unsigned prow = ring + jj * kRowBytes;
+    const int k0 = chunk(g);
+    const int kbn = chunk(gn);
+    const int in = gn / kGjClusterCtas;
+    // A row of the peer's block: the k-th of the peer's blocks (g / 2) is
+    // the slot's k-th phase.
+    if (!holds(g)) mbar_wait(full + 8 * jj, (g / kGjClusterCtas) & 1);
+    float f[RP];
+#pragma unroll
+    for (int q = 0; q < RP / 4; ++q) {
+      const float4 v = lds128(col + (jj % kGjBufs) * kColBytes + 16 * q);
+      f[4 * q] = v.x, f[4 * q + 1] = v.y, f[4 * q + 2] = v.z, f[4 * q + 3] = v.w;
+    }
+    if (holds(g) && ty == jj) f[g / kGjClusterCtas] = 0.0f;
+    float p[C];
+#pragma unroll
+    for (int k = k0; k < C; ++k) {
+      if (k >= kend) break;
+      p[k] = lds32(prow + 4 * kWarp * k);
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) a[i][kbn] -= f[i] * p[kbn];
+    const bool owner = next && holds(gn) && ty == jjn;
+    if (next) publish_col(gn, jjn, (jj + 1) % kGjBufs);
+    if (owner) {
+      const float piv = pivot_of(gn, jjn);
+#pragma unroll
+      for (int k = k0; k < C; ++k) {
+        if (k >= kend) break;
+        if (k != kbn) a[in][k] -= f[in] * p[k];
+      }
+      publish_row(gn, (jj + 1) % W, piv);
+    }
+#pragma unroll
+    for (int k = k0; k < C; ++k) {
+      if (k >= kend) break;
+      if (k == kbn) continue;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        if (!(owner && i == in)) a[i][k] -= f[i] * p[k];
+      }
+    }
+    __syncthreads();
+  }
+};
+
+template <int W, int R, int C>
+__global__ void __cluster_dims__(kGjClusterCtas, 1, 1) __launch_bounds__(kWarp * W, 1)
+    gj_cluster_kernel(const float* __restrict__ K, const float* __restrict__ rhs,
+                      float* __restrict__ out, int m) {
+  static_assert(kWarp % W == 0, "a row block lies in one column chunk");
+  static_assert(W % kGjBufs == 0, "pivot j's factors lie in buffer (j % W) % kGjBufs");
+  constexpr int G = kGjClusterCtas * R;  // global row blocks
+  using Tile = GjClusterTile<W, R, C>;
+  __shared__ float4 colbuf[kGjBufs][W * Tile::RP / 4];
+  __shared__ float ring[W][kWarp * C];
+  __shared__ unsigned long long fullbar[W];
+  Tile t;
+  t.tx = threadIdx.x;
+  t.ty = threadIdx.y;
+  t.rank = static_cast<int>(cluster_ctarank());
+  const unsigned peer = static_cast<unsigned>(t.rank ^ 1);
+  t.col = smem_addr(&colbuf[0][t.ty * (Tile::RP / 4)]);
+  t.ring = smem_addr(&ring[0][t.tx]);
+  t.peer_ring = map_to_rank(t.ring, peer);
+  t.full = smem_addr(&fullbar[0]);
+  t.peer_full = map_to_rank(t.full, peer);
+  t.kend = (m + kWarp) / kWarp;
+  const size_t b = cluster_id();
+  const float* Kb = K + b * m * m;
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int r = W * (kGjClusterCtas * i + t.rank) + t.ty;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const int c = t.tx + kWarp * k;
+      float v = 0.0f;
+      if (r < m) {
+        if (c < m) {
+          v = Kb[r * m + c];
+        } else if (c == m) {
+          v = rhs[b * m + r];
+        }
+      }
+      t.a[i][k] = v;
+    }
+  }
+  if (t.tx == 0 && t.ty == 0) {
+    for (int s = 0; s < W; ++s) mbar_init(t.full + 8 * s, 1);
+    fence_mbar_init();
+  }
+  // The peer has started and its mbarriers are set up.
+  cluster_arrive();
+  cluster_wait();
+  {
+    float piv = 0.0f;
+    const bool owner = t.holds(0) && t.ty == 0;
+    if (owner) piv = t.pivot_of(0, 0);
+    t.publish_col(0, 0, 0);
+    if (owner) t.publish_row(0, 0, piv);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int j0 = g * W;
+    if (j0 >= m) break;
+    // The peer's rows of this block: each slot expects the row's live chunks.
+    if (!t.holds(g) && t.tx == 0 && t.ty == 0) {
+      const unsigned bytes = 4u * kWarp * static_cast<unsigned>(t.kend - Tile::chunk(g));
+      for (int s = 0; s < W && j0 + s < m; ++s) mbar_expect_tx(t.full + 8 * s, bytes);
+    }
+    for (int jj = 0; jj < W - 1; ++jj) {
+      if (j0 + jj >= m) break;
+      t.step(g, jj, g, jj + 1, j0 + jj + 1 < m);
+    }
+    const int j = j0 + W - 1;
+    if (j < m) t.step(g, W - 1, g + 1 < G ? g + 1 : g, 0, j + 1 < m);
+  }
+  // No CTA leaves while its peer may still write into its shared memory.
+  cluster_arrive();
+  cluster_wait();
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int r = W * (kGjClusterCtas * i + t.rank) + t.ty;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      if (r < m && t.tx + kWarp * k == m) out[b * m + r] = t.a[i][k];
+    }
+  }
+}
+
 template <typename T, bool kSolve>
 __global__ void gj_smem_kernel(const T* __restrict__ K, const T* __restrict__ rhs,
                                T* __restrict__ out, int m) {
@@ -499,14 +797,16 @@ __global__ void gj_smem_kernel(const T* __restrict__ K, const T* __restrict__ rh
   }
 }
 
-// `tile` picks the register-tile kernel (float32 only, m within the tile);
-// the caller decides (ops/cuda_lin.py:gj_plan) and a misfit is refused here.
+// Which kernel launch_gj runs: ops/cuda_lin.py:gj_plan decides (GJ_ROUTES
+// there), and a misfit is refused here.
+enum GjRoute { kGjSmem = 0, kGjTile = 1, kGjCluster = 2 };
+
 template <typename T, bool kSolve>
-cudaError_t launch_gj(const T* K, const T* rhs, T* out, int batch, int m, int tile,
+cudaError_t launch_gj(const T* K, const T* rhs, T* out, int batch, int m, int route,
                       cudaStream_t stream) {
   if (batch <= 0) return cudaSuccess;
   if (m < 1) return cudaErrorInvalidValue;
-  if (tile) {
+  if (route == kGjTile) {
     constexpr int W = kSolve ? kGjSolveW : kGjInverseW;
     constexpr int R = kSolve ? kGjSolveR : kGjInverseR;
     constexpr int C = kSolve ? kGjSolveC : kGjInverseC;
@@ -518,6 +818,18 @@ cudaError_t launch_gj(const T* K, const T* rhs, T* out, int batch, int m, int ti
       return cudaErrorInvalidValue;
     }
   }
+  if (route == kGjCluster) {
+    constexpr int W = kGjClusterW, R = kGjClusterR, C = kGjClusterC;
+    if constexpr (kSolve && sizeof(T) == sizeof(float)) {
+      if (m > kGjClusterCtas * W * R || m + 1 > kWarp * C) return cudaErrorInvalidValue;
+      gj_cluster_kernel<W, R, C><<<kGjClusterCtas * batch, dim3(kWarp, W), 0, stream>>>(
+          K, rhs, out, m);
+      return cudaGetLastError();
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  }
+  if (route != kGjSmem) return cudaErrorInvalidValue;
   const dim3 block(kWarp, kGjSmemWarps);
   const size_t w = kSolve ? m + 1 : static_cast<size_t>(m);
   const size_t smem = sizeof(T) * (m * w + m);
@@ -548,11 +860,15 @@ cudaError_t launch_gj(const T* K, const T* rhs, T* out, int batch, int m, int ti
 // iteration costs in practice is the instructions every warp executes around
 // its multiply-adds and the exchanges between warps, one per product.
 //
-// Design (admm_tile_kernel, float32 with n <= 128 and m <= 208): K^-1 and A
-// live in registers for the whole launch. Warp ty, lane tx owns rows
-// ty + 16 i and columns tx + 32 k of both: 13 x 4 values of A, 8 x 4 of K^-1.
+// Design (admm_tile_kernel<RA>, float32 with n <= 128 and m <= 16 RA): K^-1
+// and A live in registers for the whole launch. Warp ty, lane tx owns rows
+// ty + 16 i and columns tx + 32 k of both: RA x 4 values of A, 8 x 4 of K^-1.
+// RA = 13 (m <= 208) takes the MPC's and the WBID's QPs; RA = 14 (m <= 224)
+// the MPC's with MPCConfig.roll_moment_max (m = 210), for 4 registers more a
+// thread: a warp keeps the states of 16 rows (two lanes a row), so RA may
+// grow to 16 with nothing else changed.
 // Shared memory holds only vectors and partial sums. Per iteration:
-//   A^T w: a thread sums its rows of A against w (its warp's 13 entries),
+//   A^T w: a thread sums its rows of A against w (its warp's RA entries),
 //     and the 16 warps' partial sums of each column meet in shared memory;
 //     after barrier 1 every thread adds up the 16 partials of its own four
 //     columns (16-byte loads), so every warp has rhs. A^T is never stored.
@@ -572,12 +888,15 @@ cudaError_t launch_gj(const T* K, const T* rhs, T* out, int batch, int m, int ti
 //
 // admm_smem_kernel keeps K^-1 and A in dynamic shared memory (153.6 KB at
 // f32 for the MPC's size) with one warp per row and five barriers per
-// iteration, for float64 and for sizes beyond the tile. The main path does
-// not reach it.
+// iteration, for float64 and for sizes beyond the tiles; no path of the port
+// reaches it. On an H100 its iteration took 14.3 us at m = 210 against the
+// tile's 1.3 us at m = 200 (PERF.md): A^T w is a chain of m shared-memory
+// multiply-adds in each of n threads.
 // ---------------------------------------------------------------------------
 
 constexpr int kAdmmW = 16;   // warps of the tile kernel
 constexpr int kAdmmRA = 13;  // rows of A a thread: 16 x 13 = 208
+constexpr int kAdmmRAWide = 14;  // the wide tile's: 16 x 14 = 224
 constexpr int kAdmmRK = 8;   // rows of K^-1 a thread: 16 x 8 = 128
 constexpr int kAdmmC = 4;    // columns a thread: 32 x 4 = 128
 // Floats between two columns' partial sums (16 warps' and 4 of padding): the
@@ -610,6 +929,7 @@ __device__ __forceinline__ float transpose_reduce(float (&v)[V], int lane) {
   return v[0];
 }
 
+template <int RA>
 __global__ void __launch_bounds__(kWarp * kAdmmW, 1)
     admm_tile_kernel(const float* __restrict__ Kinv, const float* __restrict__ A,
                      const float* __restrict__ q, const float* __restrict__ l,
@@ -618,7 +938,7 @@ __global__ void __launch_bounds__(kWarp * kAdmmW, 1)
                      const float* __restrict__ y0, float* __restrict__ xo,
                      float* __restrict__ zo, float* __restrict__ yo, int n, int m, int num,
                      float sigma, float alpha, float beta) {
-  constexpr int W = kAdmmW, RA = kAdmmRA, RK = kAdmmRK, C = kAdmmC;
+  constexpr int W = kAdmmW, RK = kAdmmRK, C = kAdmmC;
   constexpr int kRowSlots = kWarp / 2;  // row states a warp keeps: lanes 2 i and 2 i + 1, row i
   static_assert(RA <= kRowSlots && kWarp % RK == 0, "rows map onto lanes");
   __shared__ float4 part[kWarp * C * kAdmmPartLd / 4];  // [column][warp]
@@ -856,22 +1176,26 @@ __global__ void admm_smem_kernel(const T* __restrict__ Kinv, const T* __restrict
   }
 }
 
-// `tile` picks the register-tile kernel (float32 only, n and m within the
-// tile); the caller decides (ops/cuda_lin.py:admm_plan) and a misfit is
-// refused here.
+// `rows` picks the kernel: 0 admm_smem_kernel, kAdmmRA or kAdmmRAWide the
+// register tile with that many rows of A a thread (float32 only, n and m
+// within the tile). The caller decides (ops/cuda_lin.py:admm_plan,
+// ADMM_ROUTES there) and a misfit is refused here.
 template <typename T>
 cudaError_t launch_admm(const T* Kinv, const T* A, const T* q, const T* l, const T* u,
                         const T* rho, const T* x, const T* z, const T* y, T* xo, T* zo, T* yo,
-                        int batch, int n, int m, int num, double sigma, double alpha, int tile,
+                        int batch, int n, int m, int num, double sigma, double alpha, int rows,
                         cudaStream_t stream) {
   if (batch <= 0) return cudaSuccess;
   if (n < 1 || m < 1 || num < 0) return cudaErrorInvalidValue;
-  if (tile) {
+  if (rows) {
     if constexpr (sizeof(T) == sizeof(float)) {
-      if (n > kWarp * kAdmmC || n > kAdmmW * kAdmmRK || m > kAdmmW * kAdmmRA) {
+      if ((rows != kAdmmRA && rows != kAdmmRAWide) || n > kWarp * kAdmmC ||
+          n > kAdmmW * kAdmmRK || m > kAdmmW * rows) {
         return cudaErrorInvalidValue;
       }
-      admm_tile_kernel<<<batch, dim3(kWarp, kAdmmW), 0, stream>>>(
+      const auto kernel =
+          rows == kAdmmRA ? admm_tile_kernel<kAdmmRA> : admm_tile_kernel<kAdmmRAWide>;
+      kernel<<<batch, dim3(kWarp, kAdmmW), 0, stream>>>(
           Kinv, A, q, l, u, rho, x, z, y, xo, zo, yo, n, m, num, static_cast<float>(sigma),
           static_cast<float>(alpha), static_cast<float>(1.0 - alpha));
       return cudaGetLastError();
@@ -908,21 +1232,21 @@ cudaError_t launch_admm(const T* Kinv, const T* A, const T* q, const T* l, const
     return launch_chol_inv_base<T>(K, W, batch, n, k_batch, k_row, w_batch, w_row, warps,       \
                                    static_cast<cudaStream_t>(stream));                          \
   }                                                                                             \
-  extern "C" int lin_gj_inverse_##SUFFIX(const T* K, T* out, int batch, int m, int tile,       \
+  extern "C" int lin_gj_inverse_##SUFFIX(const T* K, T* out, int batch, int m, int route,      \
                                          void* stream) {                                        \
-    return launch_gj<T, false>(K, nullptr, out, batch, m, tile,                                 \
+    return launch_gj<T, false>(K, nullptr, out, batch, m, route,                                \
                                static_cast<cudaStream_t>(stream));                              \
   }                                                                                             \
   extern "C" int lin_gj_solve_##SUFFIX(const T* K, const T* b, T* x, int batch, int m,         \
-                                       int tile, void* stream) {                                \
-    return launch_gj<T, true>(K, b, x, batch, m, tile, static_cast<cudaStream_t>(stream));     \
+                                       int route, void* stream) {                               \
+    return launch_gj<T, true>(K, b, x, batch, m, route, static_cast<cudaStream_t>(stream));    \
   }                                                                                             \
   extern "C" int lin_admm_iterate_##SUFFIX(                                                     \
       const T* Kinv, const T* A, const T* q, const T* l, const T* u, const T* rho, const T* x, \
       const T* z, const T* y, T* xo, T* zo, T* yo, int batch, int n, int m, int num,            \
-      double sigma, double alpha, int tile, void* stream) {                                     \
+      double sigma, double alpha, int rows, void* stream) {                                     \
     return launch_admm<T>(Kinv, A, q, l, u, rho, x, z, y, xo, zo, yo, batch, n, m, num, sigma,  \
-                          alpha, tile, static_cast<cudaStream_t>(stream));                      \
+                          alpha, rows, static_cast<cudaStream_t>(stream));                      \
   }
 
 LIN_DEFINE_ENTRIES(float, f32)

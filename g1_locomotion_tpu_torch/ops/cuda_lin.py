@@ -26,15 +26,24 @@ B1 reads and writes strided blocks: ``K`` and ``out`` may be views of larger
 matrices (any batch and row stride, unit column stride), so the recursion of
 ``ops/lin.py`` hands it blocks where they lie.
 
-Shared memory per block (``MAX_SMEM_BYTES`` is what a Hopper block can use),
-in elements of the working type: B1 64 per matrix; B2 and B3 none beyond
-two small static buffers when the system fits the float32 register tile
-(``GJ_TILE``: B2 m <= 128, B3 m <= 208), else the in-place array and the
-saved column, ``m w + m`` with ``w = m`` for B2 and ``m + 1`` for B3
-(m <= 240 at float32, m <= 169 at float64, for either); B4 a few static
-vectors when the QP fits the float32 register tile (``ADMM_TILE``: m <= 208,
-n <= 128), else ``n^2 + m n + 4 n + 7 m``. ``gj_plan`` and ``admm_plan``
-decide.
+Routes: ``gj_plan`` and ``admm_plan`` name the kernel a call launches, and
+shared memory per block (``MAX_SMEM_BYTES`` is what a Hopper block can use),
+in elements of the working type; B1 takes 64 per matrix.
+
+* B2 and B3 at float32 within the register tile (``GJ_TILE``: B2 m <= 128,
+  B3 m <= 208): ``"tile"``, two small static buffers;
+* B3 at float32 past it, m <= ``GJ_CLUSTER_MAX_M`` (240; the roll-moment
+  cap's m = 210): ``"cluster"``, the tile split over a two-CTA thread-block
+  cluster (``GJ_CLUSTER``), small static buffers in each CTA;
+* else (float64, B2 past its tile): ``"smem"``, the in-place array and the
+  saved column, ``m w + m`` with ``w = m`` for B2 and ``m + 1`` for B3
+  (m <= 240 at float32, m <= 169 at float64);
+* B4 at float32 with n <= 128: ``"tile13"`` for m <= 208 (``ADMM_TILE``) and
+  ``"tile14"`` for m <= 224 (``ADMM_TILE_WIDE``), a few static vectors;
+  else ``"smem"``, ``n^2 + m n + 4 n + 7 m``.
+
+A system that no route takes raises ValueError; a launch the card refuses
+raises RuntimeError. Nothing falls back to another route.
 """
 
 from __future__ import annotations
@@ -64,9 +73,21 @@ BASE_WARPS = 4           # matrices (warps) per block of the Cholesky base kerne
 # (rows, columns) of the float32 register tiles of B2 and B3, as in the CUDA
 # source: kGj<Kind>W * kGj<Kind>R and 32 * kGj<Kind>C.
 GJ_TILE = {"gj_inverse": (128, 128), "gj_solve": (208, 224)}
-# (rows of A, columns) of B4's float32 register tile: kAdmmW * kAdmmRA and
-# 32 * kAdmmC (K^-1's rows, kAdmmW * kAdmmRK, cover the columns).
+# (rows, columns) of B3's float32 cluster tile: kGjClusterCtas * kGjClusterW *
+# kGjClusterR and 32 * kGjClusterC. The plan sends it the systems past
+# GJ_TILE up to GJ_CLUSTER_MAX_M, the float32 widths the shared-memory kernel
+# took before it (its array fills a block's shared memory at m = 240).
+GJ_CLUSTER = (256, 256)
+GJ_CLUSTER_MAX_M = 240
+# (rows of A, columns) of B4's float32 register tiles: kAdmmW * kAdmmRA (or
+# kAdmmRAWide) and 32 * kAdmmC (K^-1's rows, kAdmmW * kAdmmRK, cover the
+# columns).
 ADMM_TILE = (208, 128)
+ADMM_TILE_WIDE = (224, 128)
+# Each plan's routes and the code its C entry point takes for them
+# (csrc/lin_kernels.cu: launch_gj's GjRoute, launch_admm's rows of A a thread).
+GJ_ROUTES = {"smem": 0, "tile": 1, "cluster": 2}
+ADMM_ROUTES = {"smem": 0, "tile13": 13, "tile14": 14}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -196,15 +217,25 @@ def launch_counts() -> Dict[str, int]:
     return {fn.__name__: fn.launches for fn in KERNELS}
 
 
+def route_counts() -> Dict[str, Dict[str, int]]:
+    """{wrapper name: {route: launches}}: which kernel each launch took (B1
+    has the one route ``"warp"``)."""
+    return {fn.__name__: dict(fn.routes) for fn in KERNELS}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+        fn.routes = {}
 
 
-def _count(name: str) -> None:
-    """One launch of kernel `name`, on the wrapper's own counter (found by
-    name, so a caller that swaps the module attribute still counts)."""
-    _BY_NAME[name].launches += 1
+def _count(name: str, route: str) -> None:
+    """One launch of kernel `name` by `route`, on the wrapper's own counters
+    (found by name, so a caller that swaps the module attribute still
+    counts)."""
+    fn = _BY_NAME[name]
+    fn.launches += 1
+    fn.routes[route] = fn.routes.get(route, 0) + 1
 
 
 def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -274,7 +305,7 @@ def chol_inverse_base(K: torch.Tensor, out: Optional[torch.Tensor] = None) -> to
                          f"blocks overlap")
     _launch("lin_chol_inv_base", K.dtype, _ptr(K), _ptr(out), B, n, K.stride(0), K.stride(1),
             out.stride(0), out.stride(1), BASE_WARPS, _stream(K))
-    _count("chol_inverse_base")
+    _count("chol_inverse_base", "warp")
     return out
 
 
@@ -283,21 +314,28 @@ def chol_inverse_base(K: torch.Tensor, out: Optional[torch.Tensor] = None) -> to
 # ---------------------------------------------------------------------------
 
 
-def gj_plan(name: str, m: int, dtype: torch.dtype) -> Tuple[bool, int]:
+def gj_plan(name: str, m: int, dtype: torch.dtype) -> Tuple[str, int]:
     """Which kernel B2 (``gj_inverse``) or B3 (``gj_solve``) launches for an
-    m-wide system: (True, 0) for the float32 register-tile kernel when the
-    system, with b as one more column for B3, fits ``GJ_TILE`` (zero padding
-    to the tile happens in the kernel's registers); else (False, bytes of
-    dynamic shared memory) for the shared-memory kernel, which holds the
-    in-place (m, w) array and the saved column (m). Raises ValueError where
-    that exceeds ``MAX_SMEM_BYTES``."""
+    m-wide system, as (route, bytes of dynamic shared memory):
+
+    * ``("tile", 0)``: the float32 register tile, where the system, with b
+      as one more column for B3, fits ``GJ_TILE`` (zero padding to the tile
+      happens in the kernel's registers);
+    * ``("cluster", 0)``: B3 at float32 past the tile, m <=
+      ``GJ_CLUSTER_MAX_M``: the register tile split over a two-CTA cluster;
+    * ``("smem", bytes)``: the shared-memory kernel, which holds the in-place
+      (m, w) array and the saved column (m). Raises ValueError where that
+      exceeds ``MAX_SMEM_BYTES``."""
     if m < 1:
         raise ValueError(f"{name}: m = {m} < 1")
     w = m + 1 if name == "gj_solve" else m
     rows, cols = GJ_TILE[name]
-    if dtype == torch.float32 and m <= rows and w <= cols:
-        return True, 0
-    return False, _check_smem(name, dtype, m * w + m)
+    if dtype == torch.float32:
+        if m <= rows and w <= cols:
+            return "tile", 0
+        if name == "gj_solve" and m <= GJ_CLUSTER_MAX_M:
+            return "cluster", 0
+    return "smem", _check_smem(name, dtype, m * w + m)
 
 
 def _gj_eliminate(a: torch.Tensor, solve: bool) -> torch.Tensor:
@@ -344,10 +382,10 @@ def gj_inverse(K: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gj_inverse: K must be (B, m, m), got {tuple(K.shape)}")
     B, m, _ = K.shape
     _check("gj_inverse", {"K": K}, {"K": (B, m, m)})
-    tile, _ = gj_plan("gj_inverse", m, K.dtype)
+    route, _ = gj_plan("gj_inverse", m, K.dtype)
     out = torch.empty_like(K)
-    _launch("lin_gj_inverse", K.dtype, _ptr(K), _ptr(out), B, m, int(tile), _stream(K))
-    _count("gj_inverse")
+    _launch("lin_gj_inverse", K.dtype, _ptr(K), _ptr(out), B, m, GJ_ROUTES[route], _stream(K))
+    _count("gj_inverse", route)
     return out
 
 
@@ -359,10 +397,11 @@ def gj_solve(K: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gj_solve: K must be (B, m, m), got {tuple(K.shape)}")
     B, m, _ = K.shape
     _check("gj_solve", {"K": K, "b": b}, {"K": (B, m, m), "b": (B, m)})
-    tile, _ = gj_plan("gj_solve", m, K.dtype)
+    route, _ = gj_plan("gj_solve", m, K.dtype)
     x = torch.empty_like(b)
-    _launch("lin_gj_solve", K.dtype, _ptr(K), _ptr(b), _ptr(x), B, m, int(tile), _stream(K))
-    _count("gj_solve")
+    _launch("lin_gj_solve", K.dtype, _ptr(K), _ptr(b), _ptr(x), B, m, GJ_ROUTES[route],
+            _stream(K))
+    _count("gj_solve", route)
     return x
 
 
@@ -388,19 +427,21 @@ def admm_iterate_ref(Kinv, A, q, l, u, rho_vec, x, z, y, num: int, sigma: float,
     return x, z, y
 
 
-def admm_plan(n: int, m: int, dtype: torch.dtype) -> Tuple[bool, int]:
-    """Which kernel B4 launches for n variables and m rows: (True, 0) for the
-    float32 register-tile kernel when the QP fits ``ADMM_TILE`` (zero padding
-    to the tile happens in the kernel's registers); else (False, bytes of
-    dynamic shared memory) for the shared-memory kernel, which holds K^-1, A
-    and eleven vectors. Raises ValueError where that exceeds
-    ``MAX_SMEM_BYTES``."""
+def admm_plan(n: int, m: int, dtype: torch.dtype) -> Tuple[str, int]:
+    """Which kernel B4 launches for n variables and m rows, as (route, bytes
+    of dynamic shared memory): ``("tile13", 0)`` or ``("tile14", 0)`` for the
+    float32 register tile with 13 or 14 rows of A a thread, where the QP fits
+    ``ADMM_TILE`` or ``ADMM_TILE_WIDE`` (zero padding to the tile happens in
+    the kernel's registers); else ``("smem", bytes)`` for the shared-memory
+    kernel, which holds K^-1, A and eleven vectors. Raises ValueError where
+    that exceeds ``MAX_SMEM_BYTES``."""
     if n < 1 or m < 1:
         raise ValueError(f"admm_iterate: n = {n}, m = {m}; both must be >= 1")
-    rows, cols = ADMM_TILE
-    if dtype == torch.float32 and m <= rows and n <= cols:
-        return True, 0
-    return False, _check_smem("admm_iterate", dtype, n * n + m * n + 4 * n + 7 * m)
+    if dtype == torch.float32:
+        for route, (rows, cols) in (("tile13", ADMM_TILE), ("tile14", ADMM_TILE_WIDE)):
+            if m <= rows and n <= cols:
+                return route, 0
+    return "smem", _check_smem("admm_iterate", dtype, n * n + m * n + 4 * n + 7 * m)
 
 
 def admm_iterate(Kinv, A, q, l, u, rho_vec, x, z, y, num: int, sigma: float, alpha: float):
@@ -419,14 +460,14 @@ def admm_iterate(Kinv, A, q, l, u, rho_vec, x, z, y, num: int, sigma: float, alp
     })
     if num < 0:
         raise ValueError(f"admm_iterate: num = {num} < 0")
-    tile, _ = admm_plan(n, m, A.dtype)
+    route, _ = admm_plan(n, m, A.dtype)
     xo, zo, yo = torch.empty_like(x), torch.empty_like(z), torch.empty_like(y)
     _launch(
         "lin_admm_iterate", A.dtype,
         *(_ptr(t) for t in (Kinv, A, q, l, u, rho_vec, x, z, y, xo, zo, yo)),
-        B, n, m, int(num), float(sigma), float(alpha), int(tile), _stream(A),
+        B, n, m, int(num), float(sigma), float(alpha), ADMM_ROUTES[route], _stream(A),
     )
-    _count("admm_iterate")
+    _count("admm_iterate", route)
     return xo, zo, yo
 
 

@@ -102,6 +102,9 @@ def test_gj_inverse(cuda, dtype, m, b):
     torch.testing.assert_close(Ki, cuda_lin.gj_inverse_ref(K), rtol=TOL[dtype], atol=TOL[dtype])
 
 
+# B3 at float32 past the tile (209 <= m <= 240) runs the two-CTA cluster
+# tile: its edges and the roll-moment cap's 210, at B = 1, 2 and 150 (more
+# clusters than the card has pairs of SMs).
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype, m, b", [
     (torch.float32, 1, 3), (torch.float32, 37, 3), (torch.float32, 160, 3),
@@ -109,6 +112,7 @@ def test_gj_inverse(cuda, dtype, m, b):
     (torch.float32, 200, 300),
     (torch.float64, 1, 3), (torch.float64, 37, 3), (torch.float64, 160, 3),
     (torch.float64, 169, 2),
+    *[(torch.float32, m, b) for m in (209, 210, 224, 240) for b in (1, 2, 150)],
 ])
 def test_gj_solve(cuda, dtype, m, b):
     K = torch.tensor(_random_spd(m, b, m, cond=1e2), dtype=dtype, device=cuda)
@@ -119,15 +123,39 @@ def test_gj_solve(cuda, dtype, m, b):
                                atol=TOL[dtype])
 
 
-# float32 up to n = 128, m = 208 runs the register-tile kernel (the MPC's
-# (120, 200), the tile's full size, a ragged small QP), all else the
-# shared-memory kernel; B = 150 is more blocks than the card has SMs.
+# The cluster tile does the register tile's arithmetic in the tile's order:
+# where both take a system (m <= 208, the cluster's route launched directly),
+# their results agree bit for bit; past the tile it matches its plain
+# version (test_gj_solve).
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, b", [(1, 2), (37, 3), (200, 2), (208, 150)])
+def test_gj_cluster_tile_equals_the_register_tile(cuda, m, b):
+    K = torch.tensor(_random_spd(m, b, m, cond=1e2), dtype=torch.float32, device=cuda)
+    rhs = torch.tensor(np.random.default_rng(m).standard_normal((b, m)), dtype=torch.float32,
+                       device=cuda)
+    assert cuda_lin.gj_plan("gj_solve", m, torch.float32) == ("tile", 0)
+    x_tile = cuda_lin.gj_solve(K, rhs)
+    x_cluster = torch.empty_like(rhs)
+    cuda_lin._launch("lin_gj_solve", K.dtype, cuda_lin._ptr(K), cuda_lin._ptr(rhs),
+                     cuda_lin._ptr(x_cluster), b, m, cuda_lin.GJ_ROUTES["cluster"],
+                     cuda_lin._stream(K))
+    torch.cuda.synchronize()
+    assert torch.equal(x_cluster, x_tile)
+
+
+# float32 up to n = 128, m = 208 runs the register-tile kernel with 13 rows
+# of A a thread (the MPC's (120, 200), the tile's full size, a ragged small
+# QP), up to m = 224 the one with 14 (the roll-moment cap's (120, 210), its
+# edges), all else the shared-memory kernel; B = 150 is more blocks than the
+# card has SMs.
 @pytest.mark.gpu
 @pytest.mark.parametrize("num", [0, 1, 10, NUM])
 @pytest.mark.parametrize("dtype, n, m, b", [
     (torch.float32, 13, 21, 4), (torch.float64, 13, 21, 4), (torch.float32, 120, 200, 2),
     (torch.float32, 120, 200, 1), (torch.float32, 128, 208, 2), (torch.float32, 1, 1, 3),
     (torch.float32, 130, 40, 2), (torch.float32, 40, 210, 2), (torch.float32, 120, 200, 150),
+    *[(torch.float32, n, m, b) for n, m in ((120, 209), (120, 210), (128, 224))
+      for b in (1, 2, 150)],
 ])
 def test_admm_iterate(cuda, dtype, n, m, b, num):
     args = _admm_tensors(cuda, dtype, n, m, b)
@@ -368,15 +396,16 @@ def test_srbd_loop_period_makes_no_host_sync(cuda, polish_kernel):
 @pytest.mark.gpu
 def test_serving_solve_with_roll_moment_cap_on_card(cuda):
     """A serving MPC solve (polish_kernel) with MPCConfig.roll_moment_max at
-    float32, B = 1: m = 210 rows, so B3 and B4 run their shared-memory
-    kernels (cuda_lin.gj_plan / admm_plan); B2 3, B3 2, B4 2 launches; u0
-    within 0.5 N of the CPU's plain path (chip_smoke.py's DU0_MAX_N)."""
+    float32, B = 1: m = 210 rows, so B3 runs its cluster tile and B4 its tile
+    with 14 rows of A a thread (cuda_lin.gj_plan / admm_plan); B2 3, B3 2, B4
+    2 launches; u0 within 0.5 N of the CPU's plain path (chip_smoke.py's
+    DU0_MAX_N)."""
     from g1_locomotion_tpu_torch.models import srbd
     from g1_locomotion_tpu_torch.mpc import solver as mpc
     from g1_locomotion_tpu_torch.ops.qp import QPConfig
 
-    assert not cuda_lin.gj_plan("gj_solve", 210, torch.float32)[0]
-    assert not cuda_lin.admm_plan(120, 210, torch.float32)[0]
+    assert cuda_lin.gj_plan("gj_solve", 210, torch.float32) == ("cluster", 0)
+    assert cuda_lin.admm_plan(120, 210, torch.float32) == ("tile14", 0)
     cfg = mpc.MPCConfig(horizon=10, roll_moment_max=20.0, qp=QPConfig(
         iters=20, scaling_iters=0, rho=1.0, rho_segments=2, polish_rounds=2,
         polish_kernel=True))
@@ -395,12 +424,14 @@ def test_serving_solve_with_roll_moment_cap_on_card(cuda):
             device=device), t(x0), t(x0[:, None].expand(1, 10, 13)), t(contact),
             t(feet.expand(1, 10, 4, 3)), t(torch.tensor(com).expand(1, 10, 3)))
 
-    before = cuda_lin.launch_counts()
+    before, routes = cuda_lin.launch_counts(), cuda_lin.route_counts()
     on_card = solve(cuda)
     torch.cuda.synchronize()
     after = cuda_lin.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
         "chol_inverse_base": 0, "gj_inverse": 3, "gj_solve": 2, "admm_iterate": 2}
+    for name, route in (("gj_solve", "cluster"), ("admm_iterate", "tile14")):
+        assert cuda_lin.route_counts()[name].get(route, 0) - routes[name].get(route, 0) == 2
     on_cpu = solve(torch.device("cpu"))
     assert float((on_card.u0.cpu() - on_cpu.u0).abs().max()) <= 0.5
 

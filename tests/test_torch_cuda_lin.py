@@ -148,20 +148,39 @@ def test_gj_plain_versions_leave_their_inputs(cases):
 
 @pytest.mark.parametrize("name, dtype, m, expected", [
     # float32 within the register tile: zero padding in registers, no dynamic smem
-    ("gj_inverse", torch.float32, 1, (True, 0)),
-    ("gj_inverse", torch.float32, 120, (True, 0)),
-    ("gj_inverse", torch.float32, 128, (True, 0)),
-    ("gj_solve", torch.float32, 200, (True, 0)),
-    ("gj_solve", torch.float32, 208, (True, 0)),
-    # beyond the tile, and every float64 system: the in-place array (m, w) and
-    # a column (m) in shared memory
-    ("gj_inverse", torch.float32, 129, (False, 4 * (129 * 129 + 129))),
-    ("gj_solve", torch.float32, 209, (False, 4 * (209 * 210 + 209))),
-    ("gj_inverse", torch.float64, 120, (False, 8 * (120 * 120 + 120))),
-    ("gj_solve", torch.float64, 169, (False, 8 * (169 * 170 + 169))),
+    ("gj_inverse", torch.float32, 1, ("tile", 0)),
+    ("gj_inverse", torch.float32, 120, ("tile", 0)),
+    ("gj_inverse", torch.float32, 128, ("tile", 0)),
+    ("gj_solve", torch.float32, 200, ("tile", 0)),
+    ("gj_solve", torch.float32, 208, ("tile", 0)),
+    # B2 beyond its tile, and every float64 system: the in-place array (m, w)
+    # and a column (m) in shared memory; B3 at float32 beyond its tile: the
+    # cluster tile
+    ("gj_inverse", torch.float32, 129, ("smem", 4 * (129 * 129 + 129))),
+    ("gj_solve", torch.float32, 209, ("cluster", 0)),
+    ("gj_inverse", torch.float64, 120, ("smem", 8 * (120 * 120 + 120))),
+    ("gj_solve", torch.float64, 169, ("smem", 8 * (169 * 170 + 169))),
 ])
 def test_gj_plan_picks_tile_or_shared_memory(name, dtype, m, expected):
     assert cuda_lin.gj_plan(name, m, dtype) == expected
+
+
+# B3 at float32 across its routes' edges: the register tile to m = 208, the
+# two-CTA cluster tile from 209 to 240 (the roll-moment cap's 210 among
+# them), nothing past 240; B2 keeps its tile and shared memory there.
+@pytest.mark.parametrize("name, m, expected", [
+    ("gj_solve", 208, ("tile", 0)), ("gj_solve", 209, ("cluster", 0)),
+    ("gj_solve", 210, ("cluster", 0)), ("gj_solve", 224, ("cluster", 0)),
+    ("gj_solve", 240, ("cluster", 0)), ("gj_solve", 241, None),
+    ("gj_inverse", 209, ("smem", 4 * (209 * 209 + 209))),
+    ("gj_inverse", 240, ("smem", 4 * (240 * 240 + 240))), ("gj_inverse", 241, None),
+])
+def test_gj_plan_routes_at_the_float32_edges(name, m, expected):
+    if expected is None:
+        with pytest.raises(ValueError, match="shared memory"):
+            cuda_lin.gj_plan(name, m, torch.float32)
+    else:
+        assert cuda_lin.gj_plan(name, m, torch.float32) == expected
 
 
 @pytest.mark.parametrize("name, dtype, m", [
@@ -186,19 +205,58 @@ def test_gj_tile_sizes_match_the_cuda_source():
     assert int(re.search(r"kMaxSmem = (\d+);", src).group(1)) == cuda_lin.MAX_SMEM_BYTES
 
 
+def test_cluster_and_wide_tiles_match_the_cuda_source():
+    """GJ_CLUSTER and ADMM_TILE_WIDE repeat the constants of
+    csrc/lin_kernels.cu: the cluster tile's rows are CTAs * warps * rows per
+    thread, its columns 32 * chunks per thread, and every m that gj_plan
+    sends it fits (b included); the wide B4 tile has kAdmmRAWide rows of A a
+    thread, within the 16 row states a warp keeps. The route codes are the
+    ones launch_gj and launch_admm take."""
+    src = cuda_lin.SOURCE.read_text()
+    gj = {k: int(v) for k, v in re.findall(r"constexpr int kGj(\w+) = (\d+);", src)}
+    assert cuda_lin.GJ_CLUSTER == (gj["ClusterCtas"] * gj["ClusterW"] * gj["ClusterR"],
+                                   32 * gj["ClusterC"])
+    assert re.search(r"__cluster_dims__\(kGjClusterCtas, 1, 1\)", src)
+    assert 32 % gj["ClusterW"] == 0 and gj["ClusterW"] % gj["Bufs"] == 0
+    rows, cols = cuda_lin.GJ_CLUSTER
+    assert cuda_lin.GJ_TILE["gj_solve"][0] < cuda_lin.GJ_CLUSTER_MAX_M <= rows
+    assert cuda_lin.GJ_CLUSTER_MAX_M + 1 <= cols
+    admm = {k: int(v) for k, v in re.findall(r"constexpr int kAdmm(\w+) = (\d+);", src)}
+    assert cuda_lin.ADMM_TILE_WIDE == (admm["W"] * admm["RAWide"], 32 * admm["C"])
+    assert admm["RA"] < admm["RAWide"] <= 16
+    enum = re.search(r"enum GjRoute \{ kGjSmem = (\d+), kGjTile = (\d+), kGjCluster = (\d+) \};",
+                     src)
+    assert tuple(map(int, enum.groups())) == tuple(
+        cuda_lin.GJ_ROUTES[k] for k in ("smem", "tile", "cluster"))
+    assert cuda_lin.ADMM_ROUTES == {"smem": 0, "tile13": admm["RA"], "tile14": admm["RAWide"]}
+
+
 @pytest.mark.parametrize("n, m, dtype, expected", [
     # float32 within the register tile: K^-1 and A in registers, no dynamic smem
-    (120, 200, torch.float32, (True, 0)),
-    (128, 208, torch.float32, (True, 0)),
-    (1, 1, torch.float32, (True, 0)),
-    # beyond the tile, and every float64 QP: K^-1, A and eleven vectors in
-    # shared memory
-    (129, 200, torch.float32, (False, 4 * (129 * 129 + 200 * 129 + 4 * 129 + 7 * 200))),
-    (120, 209, torch.float32, (False, 4 * (120 * 120 + 209 * 120 + 4 * 120 + 7 * 209))),
-    (13, 21, torch.float64, (False, 8 * (13 * 13 + 21 * 13 + 4 * 13 + 7 * 21))),
+    (120, 200, torch.float32, ("tile13", 0)),
+    (128, 208, torch.float32, ("tile13", 0)),
+    (1, 1, torch.float32, ("tile13", 0)),
+    # beyond the tiles, and every float64 QP: K^-1, A and eleven vectors in
+    # shared memory; float32 m <= 224: the tile with 14 rows of A a thread
+    (129, 200, torch.float32, ("smem", 4 * (129 * 129 + 200 * 129 + 4 * 129 + 7 * 200))),
+    (120, 209, torch.float32, ("tile14", 0)),
+    (13, 21, torch.float64, ("smem", 8 * (13 * 13 + 21 * 13 + 4 * 13 + 7 * 21))),
 ])
 def test_admm_plan_picks_tile_or_shared_memory(n, m, dtype, expected):
     assert cuda_lin.admm_plan(n, m, dtype) == expected
+
+
+# B4 at float32 across its routes' edges: 13 rows of A a thread to m = 208,
+# 14 to m = 224 (the roll-moment cap's 210 among them), then shared memory;
+# n > 128 takes shared memory at any m.
+@pytest.mark.parametrize("n, m, expected", [
+    (120, 208, "tile13"), (120, 209, "tile14"), (120, 210, "tile14"), (128, 224, "tile14"),
+    (128, 225, "smem"), (129, 210, "smem"),
+])
+def test_admm_plan_routes_at_the_float32_edges(n, m, expected):
+    route, nbytes = cuda_lin.admm_plan(n, m, torch.float32)
+    assert route == expected
+    assert nbytes == (0 if expected != "smem" else 4 * (n * n + m * n + 4 * n + 7 * m))
 
 
 @pytest.mark.parametrize("n, m, dtype", [

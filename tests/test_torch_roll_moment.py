@@ -184,16 +184,17 @@ def test_solve_matches_jax(case):
     assert all(torch.isfinite(v).all() for v in sol)
 
 
-def test_capped_serving_qp_takes_the_shared_memory_kernels():
+def test_capped_serving_qp_takes_the_register_kernels():
     """With the cap, the serving QP (N = 10) has m = 210 rows: past the
-    float32 register tiles of B3 (m <= 208) and B4 (m <= 208), so on the card
-    both run their shared-memory kernels, which fit the 232,448 B a block may
-    use (ops/cuda_lin.py's plans; chip_smoke.py phase 1 runs them)."""
+    float32 register tiles of B3 (m <= 208) and of B4 with 13 rows of A a
+    thread (m <= 208), so on the card B3 runs its two-CTA cluster tile and B4
+    its tile with 14 rows a thread, both in registers; neither takes a
+    shared-memory kernel any more (ops/cuda_lin.py's plans; chip_smoke.py
+    phases 1 and 3 run them)."""
     from g1_locomotion_tpu_torch.ops import cuda_lin
 
-    assert cuda_lin.gj_plan("gj_solve", 200, torch.float32) == (True, 0)
-    assert cuda_lin.gj_plan("gj_solve", 210, torch.float32) == (False, (210 * 211 + 210) * 4)
-    assert cuda_lin.admm_plan(120, 200, torch.float32) == (True, 0)
-    assert cuda_lin.admm_plan(120, 210, torch.float32) == (
-        False, (120 * 120 + 210 * 120 + 4 * 120 + 7 * 210) * 4)
-    assert cuda_lin.gj_plan("gj_inverse", 120, torch.float32) == (True, 0)
+    assert cuda_lin.gj_plan("gj_solve", 200, torch.float32) == ("tile", 0)
+    assert cuda_lin.gj_plan("gj_solve", 210, torch.float32) == ("cluster", 0)
+    assert cuda_lin.admm_plan(120, 200, torch.float32) == ("tile13", 0)
+    assert cuda_lin.admm_plan(120, 210, torch.float32) == ("tile14", 0)
+    assert cuda_lin.gj_plan("gj_inverse", 120, torch.float32) == ("tile", 0)
