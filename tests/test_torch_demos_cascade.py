@@ -13,7 +13,6 @@ import json
 
 import numpy as np
 import pytest
-import torch
 
 from g1_locomotion_tpu_torch.api import demos
 from g1_locomotion_tpu_torch.engine import tick as eng
@@ -28,17 +27,6 @@ KEYS = {
     "carry_walk_29dof_with_hand": {"config", "nv", "z_min", "z_final", "v_final_max",
                                    "rpy_final_max", "steps", "walks"},
 }
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The port's ops here are on tensors of a few hundred entries at
-    B = 1, where intra-op threads cost more CPU than they save; restored
-    afterwards (as tests/test_torch_wbid.py)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _check(out, config):

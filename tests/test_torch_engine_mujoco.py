@@ -35,15 +35,11 @@ def test_standing_bar_at_the_chip_check_depth():
     from g1_locomotion_tpu_torch.engine.mujoco_bridge import MujocoLoop
     from g1_locomotion_tpu_torch.models import robot as rb
 
-    cpu, threads = torch.device("cpu"), torch.get_num_threads()
-    torch.set_num_threads(1)  # B = 1: intra-op threads cost more than they save
+    cpu = torch.device("cpu")
     model = rb.load_robot("g1_23dof", device=cpu, dtype=torch.float64)
     loop = MujocoLoop(model, params=eng.mujoco_standing_scenario(device=cpu,
                                                                  dtype=torch.float64))
-    try:
-        res = bar.standing_bar(loop, 200)
-    finally:
-        torch.set_num_threads(threads)
+    res = bar.standing_bar(loop, 200)
     print({k: v[0] for k, v in res.items()})
     failed = {k: v for k, v in res.items() if not v[2]}
     assert not failed and loop.ctrl.tick == 200, failed

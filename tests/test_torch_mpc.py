@@ -21,6 +21,7 @@ Each JAX reference is compiled and run once per module: the throughput
 configuration alone costs about a minute of XLA compile on the CPU.
 """
 
+import functools
 from unittest import mock
 
 import jax
@@ -104,7 +105,9 @@ def slice_case():
                                    device=CPU, dtype=F64),
         inputs={k: torch.tensor(v, dtype=F64) for k, v in inp.items()},
     )
-    refs = {name: _jax_solve(cfg, inp) for name, cfg in JAX_CONFIGS.items()}
+    # Each configuration's JAX reference is compiled on first use, so that no
+    # one test pays for all three XLA compiles.
+    refs = functools.cache(lambda name: _jax_solve(JAX_CONFIGS[name], inp))
     return port, refs
 
 
@@ -118,7 +121,7 @@ def _port_solve(port, name):
 @pytest.mark.parametrize("name", list(JAX_CONFIGS))
 def test_slice_matches_jax(slice_case, name):
     port, refs = slice_case
-    ref = refs[name]
+    ref = refs(name)
     sol = _port_solve(port, name)
     for key in ("u0", "U", "x_horizon"):
         got = getattr(sol, key).numpy()
@@ -165,10 +168,10 @@ def test_warm_start_from_the_plan_keeps_the_solution(slice_case):
     port, refs = slice_case
     cfg = convert.mpc_config(JAX_CONFIGS["serving_mb2"]._asdict())
     t = port["inputs"]
-    U_warm = torch.tensor(refs["serving_mb2"]["U"])
+    U_warm = torch.tensor(refs("serving_mb2")["U"])
     sol = tmpc.solve(cfg, port["weights"], port["params"], t["x0"], t["x_ref"],
                      t["contact"], t["c_hor"], t["p_hor"], U_warm=U_warm)
-    np.testing.assert_allclose(sol.u0.numpy(), refs["serving_mb2"]["u0"], atol=1e-4)
+    np.testing.assert_allclose(sol.u0.numpy(), refs("serving_mb2")["u0"], atol=1e-4)
 
 
 @pytest.mark.parametrize("feature", ["footstep_opt", "roll_moment_max", "hdot_sw"])

@@ -50,17 +50,6 @@ TOL = {"tau": 5e-2, "fz": 0.5, "com": 1e-4}  # tests/test_golden.py's
 CLOSED_LOOP_TOL = 1e-4
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The port's ops here are on tensors of a few hundred entries at
-    B = 1, where intra-op threads cost more CPU than they save; restored
-    afterwards (as tests/test_torch_wbid.py)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _spec_pair(variant):
     import json
 

@@ -44,17 +44,6 @@ CAP = 5.0
 RTOL_QP, RTOL_U0, ATOL_D, ATOL_X = 1e-12, 1e-6, 1e-9, 1e-6
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The port's ops here are on tensors of a few hundred entries at
-    B = 1, where intra-op threads cost more CPU than they save; restored
-    afterwards (as tests/test_torch_wbid.py)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _t(x):
     return torch.tensor(np.asarray(x), dtype=F64)
 

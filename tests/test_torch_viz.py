@@ -11,7 +11,6 @@
 from pathlib import Path
 
 import numpy as np
-import pytest
 import torch
 
 from g1_locomotion_tpu.utils import replay as jreplay
@@ -26,17 +25,6 @@ from g1_locomotion_tpu_torch.wbid.stack import StackIndices
 
 CPU, F64 = torch.device("cpu"), torch.float64
 TRACE = Path(__file__).parent / "torch_mujoco_trace.npz"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The port's ops here are on tensors of a few hundred entries at
-    B = 1, where intra-op threads cost more CPU than they save; restored
-    afterwards (as tests/test_torch_wbid.py)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def test_skeleton_and_contacts_match_jax(g1):

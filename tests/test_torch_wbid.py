@@ -168,17 +168,6 @@ def _jax_references(g1, idx, gains, q, v, refs):
     return out
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The port's ops here are on tensors of a few hundred entries, where
-    intra-op threads cost far more than they save (a default-config solve
-    takes ~0.1 s on one thread, seconds on eight); restored afterwards."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
 def case(g1, q_stand):
     jidx = jstk.StackIndices.from_model(g1)
