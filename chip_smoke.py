@@ -1557,7 +1557,8 @@ def telemetry_period(name: str, loop, batch: int, params, dtype) -> dict:
     wbid_sum = float(wbid.sum(dim=1).max())
     print(f"phase 16 telemetry, {name} period (B={batch}): period {period:.3f} ms (CUDA events); "
           f"mpc_ms {float(mpc[0, 0]):.3f}; wbid_ms per tick {float(wbid.min()):.3f}-"
-          f"{float(wbid.max()):.3f}, {wbid_sum:.3f} over the period; launches {launches}")
+          f"{float(wbid.max()):.3f}, {wbid_sum:.3f} over the period; launches {launches}; "
+          f"stage segments {loop.graph_counts()}")
     if launches != TELEMETRY_LAUNCHES[name]:
         raise AssertionError(f"phase 16 {name}: launched {launches}, expected "
                              f"{TELEMETRY_LAUNCHES[name]} (as with telemetry off)")

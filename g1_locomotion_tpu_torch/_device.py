@@ -4,6 +4,7 @@ card here."""
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -29,3 +30,22 @@ def const(values, like: torch.Tensor) -> torch.Tensor:
     device and dtype, made once per device and dtype: a call inside a
     control period copies nothing from the host."""
     return _cached(values, like.device, like.dtype)
+
+
+@contextlib.contextmanager
+def capturable_lu(like: torch.Tensor):
+    """Batched LU factorizations and solves of the enclosed calls through
+    cuSOLVER and cuBLAS on `like`'s card: PyTorch's default picks MAGMA's
+    batched LU for a batch of more than one, which waits on the host, and a
+    CUDA graph's capture refuses that. PyTorch takes the library from a
+    process-wide preference, set here and restored after; on the CPU
+    nothing changes."""
+    if like.device.type != "cuda":
+        yield
+        return
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)

@@ -57,7 +57,9 @@ class BridgeController:
     """The bridge's controller, one ``ControlLoop`` tick per MuJoCo step:
     :meth:`reset` takes the settled measurement, :meth:`step` each tick's
     measurement and returns the tick's torques. Its ``stats`` time the MPC
-    and WBID solves (CUDA events on the card, the host clock on the CPU)."""
+    and WBID solves (CUDA events on the card, the host clock on the CPU) and
+    count the loop's stage segments by how they ran (``graph_captured``,
+    ``graph_replayed``, ``graph_eager``: ``ControlLoop.graph_counts``)."""
 
     def __init__(self, model: RobotModel, cfg: Optional[eng.EngineConfig] = None,
                  params: Optional[eng.ScenarioParams] = None):
@@ -112,6 +114,8 @@ class BridgeController:
         tau = log.tau[0].cpu().numpy()  # the tick's one host sync
         for name, ms in zip(stages, clock.spans_ms()):
             self.stats.timer(name).samples_ms.append(ms)
+        for name, n in self.loop.graph_counts().items():
+            self.stats.set(f"graph_{name}", n)
         return tau, log
 
 

@@ -13,7 +13,8 @@ contacts are masked to identity rows (f = 0), so the shapes stay fixed.
 
 The KKT matrix is indefinite: it is solved by LU (``torch.linalg.solve``),
 as the reference solves it with ``jnp.linalg.solve`` outside any Pallas
-kernel.
+kernel; on the card through cuSOLVER and cuBLAS (``capturable_lu``), which
+a CUDA graph can capture.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from g1_locomotion_tpu_torch._device import capturable_lu
 from g1_locomotion_tpu_torch.models import dynamics as dyn
 from g1_locomotion_tpu_torch.models import robot as rb
 from g1_locomotion_tpu_torch.models.robot import RobotModel
@@ -90,7 +92,8 @@ def constrained_step(
                    torch.cat([J_m, torch.diag_embed(diag)], dim=-1)], dim=-2)
     rhs = torch.cat([S_tau - h, b_m], dim=-1)
 
-    sol = torch.linalg.solve_ex(K, rhs[..., None]).result[..., 0]
+    with capturable_lu(K):
+        sol = torch.linalg.solve_ex(K, rhs[..., None]).result[..., 0]
     a = sol[:, :nv]
     # Row convention [J_m, -eps] [a; lam] = b with lam = -f.
     forces = (-sol[:, nv:]).reshape(B, NCP, 3) * active[..., None]

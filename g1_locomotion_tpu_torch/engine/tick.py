@@ -23,19 +23,36 @@ period adds no host sync before its end; on the CPU by the host clock.
 
 The MuJoCo bridge (``engine/mujoco_bridge.py``) drives the MPC stage and
 the tick of :class:`ControlLoop` itself, one tick per MuJoCo step.
+
+On the card both stages run as CUDA graphs. Each stage is three segments
+(pre, the solve, post), split where the stage timers bracket the solve;
+the first run of a key (the state's shapes and dtype, where the parameters
+and the module's buffers lie) runs eagerly and then captures each segment
+into a graph of the loop's one memory pool, and every later run copies the
+state (and the tick's phase, a device tensor) into the graphs' static
+inputs, replays them and copies the outputs out. The same kernels run on
+the same shapes in the same order as eagerly. A stage runs eagerly on the
+CPU, while a kernel wrapper of ``ops/cuda_lin`` that it launches is swapped
+(a caller compares or records the kernels), and for a key whose capture
+failed;
+:meth:`ControlLoop.graph_counts` says which way each segment ran.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
 import time
-from typing import List, NamedTuple, Optional, Tuple
+import warnings
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from g1_locomotion_tpu_torch._device import const, require_cuda
 from g1_locomotion_tpu_torch.core import rotations as rot
+from g1_locomotion_tpu_torch.core.spatial import Transform
 from g1_locomotion_tpu_torch.engine import plant as plant_mod
 from g1_locomotion_tpu_torch.engine.state import q_init_standing
 from g1_locomotion_tpu_torch.gait import footsteps as fs
@@ -47,7 +64,9 @@ from g1_locomotion_tpu_torch.models import robot as rb
 from g1_locomotion_tpu_torch.models import srbd
 from g1_locomotion_tpu_torch.models.robot import RobotModel
 from g1_locomotion_tpu_torch.mpc import solver as mpc
+from g1_locomotion_tpu_torch.ops import cuda_lin
 from g1_locomotion_tpu_torch.ops.qp import QPConfig
+from g1_locomotion_tpu_torch.utils import tree
 from g1_locomotion_tpu_torch.wbid import solver as wbid
 from g1_locomotion_tpu_torch.wbid.stack import StackIndices
 from g1_locomotion_tpu_torch.wbid.tasks import WBIDGains, WBIDReferences, default_gains
@@ -455,6 +474,149 @@ def _where(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     return torch.where(cond.reshape(cond.shape + (1,) * (a.dim() - cond.dim())), a, b)
 
 
+class _TickPre(NamedTuple):
+    """What the tick's first segment hands the WBID solve and the plant."""
+
+    body_X: Transform
+    feet_now: torch.Tensor
+    contact_active: torch.Tensor
+    swing_start: torch.Tensor
+    contact_hold: torch.Tensor
+    contact_hold_R: torch.Tensor
+    anchors: torch.Tensor
+    swing_xy_ref: torch.Tensor
+    refs: WBIDReferences
+
+
+# Each stage's segments, split where the stage timers bracket the solve. On
+# the card the segments of a stage are captured once per key (shapes and
+# dtypes of the state, where the parameters and the buffers lie) as CUDA
+# graphs of one pool, and replayed in order after that; the timers' events
+# go between the replays.
+_SEGMENTS = {"mpc": ("_mpc_pre", "_mpc_solve", "_mpc_post"),
+             "tick": ("_tick_pre", "_tick_solve", "_tick_post")}
+_MAX_CHAINS = 8  # captured keys a loop keeps, the least recently run dropped first
+
+
+def _storage_key(params: ScenarioParams, device: torch.device):
+    """Where and how every tensor of `params` lies (a graph reads it there),
+    numbers by value; None if a tensor is on another device (a graph would
+    keep the value it had at capture)."""
+    key = []
+    for x in tree.leaves(params):
+        if not isinstance(x, torch.Tensor):
+            key.append(x)
+        elif x.device != device:
+            return None
+        else:
+            key.append((x.data_ptr(), x.shape, x.stride(), x.dtype))
+    return tuple(key)
+
+
+def _eager(segments, params: ScenarioParams, moving: tuple, clock: Optional[_StageClock]):
+    """The stage's segments run as they are called, the solve timed."""
+    pre, solve, post = segments
+    mid = pre(params, *moving)
+    with _timed(clock):
+        sol = solve(params, *moving, mid)
+    return post(params, *moving, mid, sol)
+
+
+def _graphable(device: torch.device) -> bool:
+    return device.type == "cuda"
+
+
+def _new_pool(device: torch.device):
+    """(a memory pool for a loop's graphs, the stream they are captured on)."""
+    return torch.cuda.graph_pool_handle(), torch.cuda.Stream(device)
+
+
+def _capture_graph(fn, pool, stream):
+    """fn() captured into a CUDA graph on `stream`, allocating from `pool`:
+    (the graph, fn's outputs, which each replay overwrites)."""
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize(stream.device)
+    with torch.cuda.stream(stream), warnings.catch_warnings():
+        # A segment may launch nothing (the MPC stage's post without
+        # footstep_opt only takes views): its graph is empty, as it should be.
+        warnings.filterwarnings("ignore", "The CUDA Graph is empty")
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            out = fn()
+        finally:
+            graph.capture_end()
+    return graph, out
+
+
+def _route_delta(after: Dict[str, Dict[str, int]], before: Dict[str, Dict[str, int]]):
+    """The ops/cuda_lin launches by kernel and route between two readings."""
+    delta = {}
+    for name, routes in after.items():
+        d = {r: n - before.get(name, {}).get(r, 0) for r, n in routes.items()}
+        d = {r: n for r, n in d.items() if n}
+        if d:
+            delta[name] = d
+    return delta
+
+
+def _add_launches(launches: Dict[str, Dict[str, int]], sign: int = 1) -> None:
+    """Add (sign -1: take away) launches by kernel and route to the
+    ops/cuda_lin counters."""
+    for fn in cuda_lin.KERNELS:
+        for route, n in launches.get(fn.__name__, {}).items():
+            fn.launches += sign * n
+            total = fn.routes.get(route, 0) + sign * n
+            if total:
+                fn.routes[route] = total
+            else:
+                fn.routes.pop(route, None)
+
+
+class _Chain:
+    """A stage's segments captured as CUDA graphs for one key. A run copies
+    its arguments into the static inputs, replays the graphs and hands back
+    new tensors: an output that is an argument unchanged is the caller's own
+    tensor, every other one a copy, so that no later replay overwrites what
+    a run returned."""
+
+    def __init__(self, graphs, static: tuple, mids: list, launches, params: ScenarioParams):
+        self.graphs = graphs
+        self.static = tree.leaves(static)
+        self.mids = mids  # every segment's outputs, which the next segments read
+        self.template = mids[-1]
+        self.launches = launches
+        self.params = params  # the graphs read its tensors in place: keep them
+        arg = {id(x): i for i, x in enumerate(self.static)}
+        first = {}
+        self.plan = []
+        for j, x in enumerate(tree.leaves(self.template)):
+            if not isinstance(x, torch.Tensor):
+                self.plan.append(("keep", x))
+            elif id(x) in arg:
+                self.plan.append(("arg", arg[id(x)]))
+            elif id(x) in first:
+                self.plan.append(("same", first[id(x)]))
+            else:
+                first[id(x)] = j
+                self.plan.append(("copy", x))
+
+    def run(self, moving: tuple, clock: Optional[_StageClock]):
+        args = tree.leaves(moving)
+        for dst, src in zip(self.static, args):
+            dst.copy_(src)
+        pre, solve, post = self.graphs
+        pre.replay()
+        with _timed(clock):
+            solve.replay()
+        post.replay()
+        _add_launches(self.launches)
+        values = []
+        for how, x in self.plan:
+            values.append(args[x] if how == "arg" else values[x] if how == "same"
+                          else x.clone() if how == "copy" else x)
+        return tree.unflatten(self.template, values)
+
+
 class ControlLoop(wbid.ModelModule):
     """The closed loop as a module: the robot model, its :class:`StackIndices`
     and the standing posture are buffers; :meth:`period` runs one MPC solve
@@ -467,6 +629,7 @@ class ControlLoop(wbid.ModelModule):
         if cfg.mpc_delay not in (0, 1):
             raise ValueError("mpc_delay must be 0 (synchronous) or 1 (stale)")
         self.cfg = cfg
+        self._graph_runs = {"captured": 0, "replayed": 0, "eager": 0}
         self._rebuild()
         q_stand = q_init_standing(self.model, 1)
         self.register_buffer("posture_q", q_stand[0, 7:])
@@ -479,9 +642,21 @@ class ControlLoop(wbid.ModelModule):
         else:
             self.hand_offsets = None
 
-    # -- the MPC stage ---------------------------------------------------
+    def _rebuild(self) -> None:
+        super()._rebuild()
+        # The graphs read the buffers where they lie: a move drops them.
+        self._chains = collections.OrderedDict()
+        self._pool = self._capture_stream = None
+        self._key_params = self._key_storage = None
+
+    # -- the MPC stage: pre (FK, SRBD state, planner) | solve | post --------
     def _mpc_stage(self, params: ScenarioParams, state: EngineState,
                    clock: Optional[_StageClock] = None):
+        """The MPC solve from the measured state: (the state with the
+        solution folded in, the solution)."""
+        return self._stage("mpc", params, (state,), clock)
+
+    def _mpc_pre(self, params: ScenarioParams, state: EngineState):
         model, idx, cfg = self.model, self.idx, self.cfg
         body_X = rb.fk(model, state.q)
         x0 = srbd_state_from_wholebody(model, state.q, state.v, body_X)
@@ -518,12 +693,19 @@ class ControlLoop(wbid.ModelModule):
             lock_flag=lock_flag, swing_start=state.swing_start, z_apex=cfg.max_swing_height,
             plan_extras=cfg.plan_extras,
         )
-        with _timed(clock):
-            sol = mpc.solve(cfg.mpc, params.mpc_weights, params.srbd, x0, plan.x_ref,
-                            plan.contact_hor, plan.c_hor, plan.p_ref, U_warm=state.U_warm,
-                            landing_mask=plan.landing_mask, hdot_sw=plan.hdot_geom)
+        return x0, plan, lock_flag
+
+    def _mpc_solve(self, params: ScenarioParams, state: EngineState, pre) -> mpc.MPCSolution:
+        x0, plan, _ = pre
+        return mpc.solve(self.cfg.mpc, params.mpc_weights, params.srbd, x0, plan.x_ref,
+                         plan.contact_hor, plan.c_hor, plan.p_ref, U_warm=state.U_warm,
+                         landing_mask=plan.landing_mask, hdot_sw=plan.hdot_geom)
+
+    def _mpc_post(self, params: ScenarioParams, state: EngineState, pre,
+                  sol: mpc.MPCSolution):
+        _, plan, lock_flag = pre
         landing = plan.landing
-        if cfg.mpc.footstep_opt:
+        if self.cfg.mpc.footstep_opt:
             # Fold in the jointly optimized landing offset, except while the
             # landing lock holds the committed foothold.
             landing = _where(lock_flag > 0.5, plan.landing,
@@ -533,15 +715,24 @@ class ControlLoop(wbid.ModelModule):
             contact_now=plan.contact_hor[:, 0], landing=landing,
         ), sol
 
-    # -- one 1 kHz tick ----------------------------------------------------
+    # -- one 1 kHz tick: pre (FK, gait FSM, references) | solve | post -----
     def _tick(self, params: ScenarioParams, state: EngineState, alpha,
               clock: Optional[_StageClock] = None) -> Tuple[EngineState, TickLog]:
         """Gait FSM -> WBID references -> QP -> plant. ``alpha`` = (1 - a, a),
-        a in (0, 1] the tick's phase within the MPC period: the CoM and base
-        references interpolate x_opt0 -> x_opt1."""
+        a in (0, 1] the tick's phase within the MPC period, as two numbers
+        or a (2,) tensor: the CoM and base references interpolate x_opt0 ->
+        x_opt1."""
+        if not isinstance(alpha, torch.Tensor) and _graphable(state.q.device):
+            # On the card the phase is a (2,) tensor of the state's dtype
+            # (the same product as the number's), so that one graph serves
+            # every tick; a constant copies nothing from the host once made.
+            alpha = const(tuple(alpha), state.q)
+        return self._stage("tick", params, (state, alpha), clock)
+
+    def _tick_pre(self, params: ScenarioParams, state: EngineState, alpha) -> _TickPre:
         model, idx, cfg = self.model, self.idx, self.cfg
         gait, dt = params.gait, cfg.plant.dt
-        q, dtype = state.q, state.q.dtype
+        q = state.q
         B = q.shape[0]
         body_X = rb.fk(model, q)
 
@@ -635,13 +826,27 @@ class ControlLoop(wbid.ModelModule):
             torso_R=base_R_ref if cfg.torso_task else None, hand_pos=hand_pos,
             posture_legs_scale=posture_legs_scale,
         )
-        with _timed(clock):
-            sol = wbid.solve(model, idx, cfg.wbid, params.wbid_gains, q, state.v, refs,
-                             body_X=body_X)
+        return _TickPre(body_X=body_X, feet_now=feet_now, contact_active=contact_active,
+                        swing_start=swing_start, contact_hold=contact_hold,
+                        contact_hold_R=contact_hold_R, anchors=anchors,
+                        swing_xy_ref=swing_xy_ref, refs=refs)
+
+    def _tick_solve(self, params: ScenarioParams, state: EngineState, alpha,
+                    pre: _TickPre) -> wbid.WBIDSolution:
+        return wbid.solve(self.model, self.idx, self.cfg.wbid, params.wbid_gains, state.q,
+                          state.v, pre.refs, body_X=pre.body_X)
+
+    def _tick_post(self, params: ScenarioParams, state: EngineState, alpha, pre: _TickPre,
+                   sol: wbid.WBIDSolution) -> Tuple[EngineState, TickLog]:
+        model, idx, cfg = self.model, self.idx, self.cfg
+        gait, dt = params.gait, cfg.plant.dt
+        q, dtype = state.q, state.q.dtype
+        B = q.shape[0]
+        body_X, feet_now = pre.body_X, pre.feet_now
 
         # Whole-body plant, the active contact points pinned.
         q_new, v_new, _ = plant_mod.constrained_step(
-            model, idx, cfg.plant, q, state.v, sol.tau, state.contact_now, anchors,
+            model, idx, cfg.plant, q, state.v, sol.tau, state.contact_now, pre.anchors,
             body_X=body_X)
 
         # Gait-clock gates (crouch guard, step timing, optional weight-transfer gate).
@@ -701,13 +906,90 @@ class ControlLoop(wbid.ModelModule):
             q=q_new if cfg.log_q else q.new_zeros((B, 0)),
         )
         new_state = state._replace(
-            q=q_new, v=v_new, t=state.t + dt, swing_start=swing_start,
-            contact_hold=contact_hold, contact_hold_R=contact_hold_R,
-            prev_stance=contact_active.to(dtype), anchors=anchors,
-            gait_clock=state.gait_clock + clock_rate * dt, swing_xy_ref=swing_xy_ref,
+            q=q_new, v=v_new, t=state.t + dt, swing_start=pre.swing_start,
+            contact_hold=pre.contact_hold, contact_hold_R=pre.contact_hold_R,
+            prev_stance=pre.contact_active.to(dtype), anchors=pre.anchors,
+            gait_clock=state.gait_clock + clock_rate * dt, swing_xy_ref=pre.swing_xy_ref,
             gate_hold=gate_hold,
         )
         return new_state, log
+
+    # -- the stages on the card: CUDA graphs --------------------------------
+    def graph_counts(self) -> Dict[str, int]:
+        """Stage segments since the loop was built: ``captured`` into a
+        CUDA graph, ``replayed`` from one, and run ``eager`` (on the CPU,
+        while a kernel wrapper of ops/cuda_lin that the stage launches is
+        swapped, where a capture failed, and on each key's first run, before
+        its capture)."""
+        return dict(self._graph_runs)
+
+    def _graph_key(self, name: str, params: ScenarioParams, moving: tuple):
+        """What a stage's graphs depend on, or None where the stage runs
+        eagerly: the shapes and dtypes of the copied-in arguments, and where
+        the graphs read the parameters and the module's buffers in place."""
+        leaves = tree.leaves(moving)
+        device = leaves[0].device
+        if not _graphable(device):
+            return None
+        if params is not self._key_params:
+            self._key_params, self._key_storage = params, _storage_key(params, device)
+        if self._key_storage is None or not all(isinstance(x, torch.Tensor) for x in leaves):
+            return None
+        return (name, device, tuple((x.shape, x.dtype) for x in leaves), self._key_storage,
+                tuple(b.data_ptr() for b in self.buffers()))
+
+    def _stage(self, name: str, params: ScenarioParams, moving: tuple,
+               clock: Optional[_StageClock]):
+        """Run stage `name` on (params, *moving): from its graphs where the
+        key has them; else eagerly, and then capture them for the key.
+
+        A kernel wrapper of ops/cuda_lin swapped for another function (a
+        caller compares the kernels with their plain versions, or records
+        their inputs) has to run: a stage whose graphs launch that kernel
+        runs eagerly while the swap lasts, and nothing is captured."""
+        segments = [getattr(self, s) for s in _SEGMENTS[name]]
+        swapped = {fn.__name__ for fn in cuda_lin.KERNELS
+                   if getattr(cuda_lin, fn.__name__) is not fn}
+        key = self._graph_key(name, params, moving)
+        chain = self._chains.get(key) if key is not None else None
+        if chain is not None and not swapped.intersection(chain.launches):
+            self._chains.move_to_end(key)
+            self._graph_runs["replayed"] += len(segments)
+            return chain.run(moving, clock)
+        out = _eager(segments, params, moving, clock)
+        self._graph_runs["eager"] += len(segments)
+        if key is not None and key not in self._chains and not swapped:
+            self._chains[key] = self._capture(segments, params, moving)
+            if len(self._chains) > _MAX_CHAINS:
+                self._chains.popitem(last=False)
+        return out
+
+    def _capture(self, segments, params: ScenarioParams, moving: tuple) -> Optional[_Chain]:
+        """The segments captured on a copy of `moving`, each into a graph of
+        the loop's pool; None where one cannot be captured, and the key runs
+        eagerly from then on. The key's eager run has just made every
+        constant, index tensor and library handle the segments use."""
+        if not any(self._chains.values()):
+            # A pool lives while a graph captured into it does: with none
+            # left, a new one.
+            self._pool, self._capture_stream = _new_pool(tree.leaves(moving)[0].device)
+        static = tree.map_leaves(torch.clone, moving)
+        before = cuda_lin.route_counts()
+        graphs, outs = [], []
+        try:
+            for segment in segments:
+                graph, out = _capture_graph(functools.partial(segment, params, *static, *outs),
+                                            self._pool, self._capture_stream)
+                graphs.append(graph)
+                outs.append(out)
+        except RuntimeError:
+            return None
+        finally:
+            # A capture launches nothing: its launches count at each replay.
+            launches = _route_delta(cuda_lin.route_counts(), before)
+            _add_launches(launches, -1)
+        self._graph_runs["captured"] += len(graphs)
+        return _Chain(graphs, static, outs, launches, params)
 
     # -- the period and the rollout ---------------------------------------
     def _alpha(self, i: int, dtype: torch.dtype) -> Tuple[float, float]:

@@ -175,8 +175,9 @@ def build_qp(
     mb = max(1, cfg.move_block)
     K_knots = (N + mb - 1) // mb
     if mb > 1:
-        step_to_knot = torch.tensor([min(k // mb, K_knots - 1) for k in range(N)], device=device)
-        S_sel = (step_to_knot[:, None] == torch.arange(K_knots, device=device)[None, :]).to(dtype)
+        # Step k -> knot min(k // mb, K - 1), a constant: no host copy per call.
+        S_sel = const(tuple(tuple(float(min(k // mb, K_knots - 1) == j) for j in range(K_knots))
+                            for k in range(N)), x0)
         S = torch.kron(S_sel, torch.eye(NU, dtype=dtype, device=device))  # (N*NU, K*NU)
         B_qp = B_qp @ S
         Rbar = weights.R.repeat(K_knots) * mb

@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from g1_locomotion_tpu_torch._device import capturable_lu
 from g1_locomotion_tpu_torch.ops import cuda_lin
 from g1_locomotion_tpu_torch.ops.lin import spd_inverse
 
@@ -317,14 +318,15 @@ def _polish(P, q, A, l, u, x, y, cfg: QPConfig, rounds: int = 3):
             bot = torch.cat([A_m, -torch.diag_embed(1.0 - mask) - reg * eye_m], dim=-1)
             Kkt = torch.cat([top, bot], dim=-2)
             rhs = torch.cat([-q, b_t], dim=-1)
-            if cfg.polish_refine == 0:
-                sol = torch.linalg.solve_ex(Kkt, rhs).result
-            else:
-                LU, piv, _ = torch.linalg.lu_factor_ex(Kkt)
-                sol = torch.linalg.lu_solve(LU, piv, rhs[..., None])[..., 0]
-                for _ in range(cfg.polish_refine):
-                    r = rhs - _mv(Kkt, sol)
-                    sol = sol + torch.linalg.lu_solve(LU, piv, r[..., None])[..., 0]
+            with capturable_lu(Kkt):
+                if cfg.polish_refine == 0:
+                    sol = torch.linalg.solve_ex(Kkt, rhs).result
+                else:
+                    LU, piv, _ = torch.linalg.lu_factor_ex(Kkt)
+                    sol = torch.linalg.lu_solve(LU, piv, rhs[..., None])[..., 0]
+                    for _ in range(cfg.polish_refine):
+                        r = rhs - _mv(Kkt, sol)
+                        sol = sol + torch.linalg.lu_solve(LU, piv, r[..., None])[..., 0]
             x_p, y_p = sol[:, :n], sol[:, n:]
         res_p = kkt(x_p, y_p)
         better = (res_p < best)[:, None]

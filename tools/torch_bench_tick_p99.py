@@ -114,7 +114,8 @@ def main(argv=None) -> None:
                           "period_events": pct(event_ms), "mpc_solve": pct(mpc_ms),
                           "wbid_solve_per_tick": pct(np.concatenate(wbid_ms)),
                           "wbid_solves_per_period": pct(wbid_sum), "rest_of_period": pct(rest),
-                          "clock": "CUDA events"}), flush=True)
+                          "stage_segments": loop.graph_counts(), "clock": "CUDA events"}),
+              flush=True)
 
 
 if __name__ == "__main__":
